@@ -10,21 +10,31 @@ Phases, in order; any failure raises and exits nonzero:
      batches proved through infimum_tpu_torch, each verified by the native
      pairing against the poll's own public inputs, outcome option 5;
   4. kernel vs plain: on the first process proof's inputs (the G1 `a` query
-     and the G2 `b2` query) each kernel and its plain torch version give the
-     same window points as affine points; both are timed;
+     and the G2 `b2` query) each MSM kernel and its plain torch version give
+     the same window points as affine points; both are timed;
   5. negative checks: a tampered proof and a wrong public input are
      rejected;
-  6. path checks: every kernel was launched in the e2e run, and no JAX
-     module was imported.
-The last two lines of standard output are a JSON line with each kernel's
-launches, error and times, then the card's name and power limit; the very
-last line is the result: {"ok": true, "device": {...}}.
+  6. path checks: every MSM kernel was launched in the e2e run, and no
+     module of JAX or of the JAX package `infimum_tpu` was imported;
+  7. Poseidon on the card: (a) the largest legal poll's trees, 1,022
+     sign-up leaves in the binary depth-10 registration tree and 15,624
+     message leaves in the quinary depth-6 message tree, every leaf batch
+     hashed by the Poseidon kernel and both trees built level by level
+     through it, leaves and roots equal to the native library's; (b) the
+     benchmark's batch, 2^16 width-5 hashes (t = 6), kernel equal to its
+     plain version and to the native library, both timed; (c) every width
+     t = 2..13 at 1,000 states against the native library; then the same
+     path checks for the Poseidon kernel in (a).
+The last three lines of standard output are a JSON line with each kernel's
+launches, error, times and bound, then the card's name and power limit;
+the very last line is the result: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import random
 import subprocess
 import sys
 import time
@@ -33,22 +43,68 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 KERNEL_ROWS = (
-    ("msm_accum", "infimum_tpu_torch/csrc/msm_accum.cu",
+    ("msm_accum_g1", "infimum_tpu_torch/csrc/msm_accum.cu",
      "infimum_tpu/msm/pallas_msm.py:211"),
-    ("msm_weighted", "infimum_tpu_torch/csrc/msm_weighted.cu",
+    ("msm_accum_g2", "infimum_tpu_torch/csrc/msm_accum.cu",
+     "infimum_tpu/msm/pallas_msm.py:211"),
+    ("msm_weighted_g1", "infimum_tpu_torch/csrc/msm_weighted.cu",
      "infimum_tpu/msm/pallas_msm.py:380"),
+    ("msm_weighted_g2", "infimum_tpu_torch/csrc/msm_weighted.cu",
+     "infimum_tpu/msm/pallas_msm.py:380"),
+    ("poseidon_perm", "infimum_tpu_torch/csrc/poseidon_perm.cu",
+     "infimum_tpu/hash/poseidon_pallas.py:236"),
 )
+# Bounds: the larger of bytes over the memory rate and 32-bit multiplies
+# over their rate. HBM3 of an H100 SXM: 3.35 TB/s (NVIDIA's data sheet).
+# 32-bit integer multiply and multiply-add: 64 per clock per SM on compute
+# capability 9.0 (CUDA C++ Programming Guide, throughput of arithmetic
+# instructions), times the SM count and the card's maximum SM clock. A
+# Montgomery product (CIOS over 8 words) takes 8 x (8 + 1 + 8) products,
+# each low and high half: 264 multiplies.
+HBM_BYTES_PER_S = 3.35e12
+INT32_MULS_PER_CLOCK_SM = 64
+MULS_PER_MONT = 264
+# Fq products per complete add (RCB Alg. 7) and per mixed add (Alg. 8): an
+# Fq2 product is 3 Fq products, the G2 3b product 4 (b3 is two calls); the
+# G1 3b product is additions.
+ADD_MULS = {"g1": 12, "g2": 12 * 3 + 2 * 4}
+MIXED_MULS = {"g1": 11, "g2": 11 * 3 + 2 * 4}
+SIGNUPS, MESSAGES = 1022, 15624   # client/scale.py: the largest legal poll
+POLL_SEED, BENCH_SEED = 20260820, 20260819
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
+def smi(query: str) -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+
+
+def card_line() -> str:
+    return smi("name,power.limit")
+
+
+def int32_mul_rate() -> float:
+    """32-bit integer multiplies per second of the card at its maximum SM
+    clock."""
+    mhz = float(smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_MULS_PER_CLOCK_SM * mhz * 1e6
+
+
+def bound(nbytes: float, mont_muls: float, mul_rate: float):
+    """(least ms, "bytes" or "operations") for the given work."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = mont_muls * MULS_PER_MONT / mul_rate * 1e3
+    return (by_bytes, "bytes") if by_bytes > by_ops else (by_ops,
+                                                          "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def cuda_ms(fn, reps: int):
@@ -64,11 +120,12 @@ def cuda_ms(fn, reps: int):
     return start.elapsed_time(end) / reps, out
 
 
-def kernel_vs_plain(pk, witness):
-    """Compare each kernel with its plain version on the first process
-    proof's `a` (G1) and `b2` (G2) MSM inputs; returns per-kernel rows."""
-    from infimum_tpu.ff.bn254 import FR_MOD
+def kernel_vs_plain(pk, witness, mul_rate):
+    """Compare each MSM kernel with its plain version on the first process
+    proof's `a` (G1) and `b2` (G2) MSM inputs; returns per-kernel rows
+    (error, ms, plain ms, bound ms, bound by)."""
     from infimum_tpu_torch.curve.proj import G1_DEV, G2_DEV
+    from infimum_tpu_torch.ff.bn254 import FR_MOD
     from infimum_tpu_torch.ff.fp import NLIMBS, ints_to_tensor
     from infimum_tpu_torch.groth16.groth16 import _query_encoding
     from infimum_tpu_torch.msm import msm as M
@@ -105,8 +162,30 @@ def kernel_vs_plain(pk, witness):
             f"window points equal: {got == want}")
         if got != want:
             raise AssertionError(f"{name}: kernel and plain windows differ")
-        rows_out[f"msm_accum_{curve.name}"] = (err, acc_ms, acc_plain_ms)
-        rows_out[f"msm_weighted_{curve.name}"] = (err, wt_ms, wt_plain_ms)
+        # the work these inputs need: one mixed add per entry whose digit
+        # repeats the one before it (and is not 0); per live slot with digit
+        # d, bitlen(d) - 1 doublings, popcount(d) - 1 adds and one add into
+        # the window's sum
+        sdig = layout[0]
+        mixed = int(((sdig[:, 1:] == sdig[:, :-1]) & (sdig[:, 1:] != 0))
+                    .sum())
+        d = cdig[cdig > 0].to(torch.int64)
+        bits = range(spec.c_bits + 1)
+        bitlen = sum(((d >> b) > 0).to(torch.int64) for b in bits)
+        pop = sum((d >> b) & 1 for b in bits)
+        adds = int((bitlen + pop - 1).sum())
+        acc_bound = bound(nbytes(*layout, edig, ept),
+                          mixed * MIXED_MULS[curve.name], mul_rate)
+        wt_bound = bound(nbytes(cdig, cpts, wk),
+                         adds * ADD_MULS[curve.name], mul_rate)
+        log(f"[bound] {name}: {mixed} mixed adds -> accum bound "
+            f"{acc_bound[0]:.3f} ms ({acc_bound[1]}); {d.numel()} live slots, "
+            f"{adds} complete adds -> weighted bound {wt_bound[0]:.3f} ms "
+            f"({wt_bound[1]})")
+        rows_out[f"msm_accum_{curve.name}"] = (err, acc_ms, acc_plain_ms,
+                                              *acc_bound)
+        rows_out[f"msm_weighted_{curve.name}"] = (err, wt_ms, wt_plain_ms,
+                                                 *wt_bound)
     return rows_out
 
 
@@ -118,6 +197,129 @@ def _affine_err(p, q) -> int:
     def flat(pt):
         return [c for v in pt for c in (v if isinstance(v, tuple) else (v,))]
     return max(abs(a - b) for a, b in zip(flat(p), flat(q)))
+
+
+def _equal(name: str, got, want) -> None:
+    if got != want:
+        raise AssertionError(f"{name}: kernel result differs from native")
+
+
+def poll_trees(native):
+    """Phase 7(a): the largest legal poll's leaves and trees through the
+    kernel, held against the native library. Returns the kernel's launches
+    in this phase."""
+    from infimum_tpu_torch import kernels
+    from infimum_tpu_torch.ff.bn254 import FR_MOD
+    from infimum_tpu_torch.hash.poseidon import poseidon_batch
+    from infimum_tpu_torch.parallel.tree import tree_root
+    from infimum_tpu_torch.tree.zeros import merkle_zeros
+
+    rng = random.Random(POLL_SEED)
+    signups = [[rng.randrange(FR_MOD), rng.randrange(FR_MOD), 1, 2 + i]
+               for i in range(SIGNUPS)]
+    messages = [[rng.randrange(FR_MOD) for _ in range(12)]
+                for _ in range(MESSAGES)]        # data[0..10], pkx, pky
+    zeros2, zeros5 = merkle_zeros(2)[0], merkle_zeros(5)[0]
+
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    signup_leaves = poseidon_batch([list(c) for c in zip(*signups)])
+    cols = list(zip(*messages))
+    left = poseidon_batch([list(c) for c in cols[:5]])
+    right = poseidon_batch([list(c) for c in cols[5:10]])
+    msg_leaves = poseidon_batch([left, right, list(cols[10]),
+                                 list(cols[11])])
+    t1 = time.perf_counter()
+    reg_root = tree_root(2, 10, [zeros2] + signup_leaves, zero=zeros2)
+    msg_root = tree_root(5, 6, msg_leaves, zero=zeros5)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = kernels.launch_counts()["poseidon_perm"]
+
+    n_signup = native.poseidon_batch(signups, 4)
+    n_left = native.poseidon_batch([m[:5] for m in messages], 5)
+    n_right = native.poseidon_batch([m[5:10] for m in messages], 5)
+    n_msg = native.poseidon_batch(
+        [[a, b, m[10], m[11]] for a, b, m in zip(n_left, n_right, messages)],
+        4)
+    t3 = time.perf_counter()
+    reg = native.NativeIMT(2, 10, zero_seed=True)
+    for leaf in n_signup:
+        reg.insert(leaf)
+    reg.merge(True)
+    msg = native.NativeIMT(5, 6, zero_seed=False)
+    for leaf in n_msg:
+        msg.insert(leaf)
+    msg.merge(True)
+    t4 = time.perf_counter()
+    _equal("sign-up leaves", signup_leaves, n_signup)
+    _equal("message halves", (left, right), (n_left, n_right))
+    _equal("message leaves", msg_leaves, n_msg)
+    _equal("registration root", reg_root, reg.root)
+    _equal("message root", msg_root, msg.root)
+    log(f"[poseidon] poll trees: {SIGNUPS} sign-up + {3 * MESSAGES} message "
+        f"hashes {t1 - t0:.3f}s, registration (2, 10) + message (5, 6) trees "
+        f"{t2 - t1:.3f}s on the card, {launches} kernel launches; native "
+        f"library on the host: hashes {t3 - t2:.3f}s, IMT inserts + merges "
+        f"{t4 - t3:.3f}s; leaves and both roots equal native")
+    return launches
+
+
+def bench_batch(native, mul_rate):
+    """Phase 7(b): 2^16 width-5 hashes (t = 6), kernel vs plain vs native;
+    returns (error, ms, plain ms, bound ms, bound by)."""
+    from infimum_tpu_torch.ff.bn254 import FR_MOD
+    from infimum_tpu_torch.ff.fp import FR_CTX, limbs_to_words
+    from infimum_tpu_torch.hash import poseidon as H
+    from infimum_tpu_torch.hash.grain import FULL_ROUNDS, PARTIAL_ROUNDS
+
+    b, width = 1 << 16, 5
+    t = width + 1
+    rng = random.Random(BENCH_SEED)
+    cols = [[rng.randrange(FR_MOD) for _ in range(b)] for _ in range(width)]
+    state = torch.cat([torch.zeros((1, b, 16), dtype=torch.int64,
+                                   device="cuda"),
+                       torch.stack([FR_CTX.encode(c, "cuda") for c in cols])])
+    words = limbs_to_words(state).transpose(1, 2).contiguous()
+    H.perm_words(words)                                   # warm
+    ms, out_words = cuda_ms(lambda: H.perm_words(words), 10)
+    plain_ms, plain = cuda_ms(lambda: H.poseidon_perm_plain(state), 1)
+    kernel = H.poseidon_perm(state)
+    if not torch.equal(kernel, plain):
+        raise AssertionError("poseidon_perm: kernel and plain differ")
+    hashes = FR_CTX.decode(kernel[0])
+    _equal("2^16 w5 batch", hashes, native.poseidon_batch(
+        [list(r) for r in zip(*cols)], width))
+    rounds_muls = (FULL_ROUNDS * (3 * t + t * t)
+                   + PARTIAL_ROUNDS[t - 2] * (3 + t * t))
+    ark, mds = H.tables(t, "cuda", words=True)
+    bnd = bound(nbytes(words, out_words, ark, mds), b * rounds_muls,
+                mul_rate)
+    log(f"[poseidon] 2^16 w5 batch: kernel {ms:.3f} ms "
+        f"({b / ms * 1e3:.1f} hashes/s), plain {plain_ms:.3f} ms, bound "
+        f"{bnd[0]:.3f} ms ({bnd[1]}, {rounds_muls} Fr products a hash); "
+        f"kernel == plain on all {b} lanes, == native; card "
+        f"{card_line()}")
+    return (0, ms, plain_ms, *bnd)
+
+
+def width_sweep(native) -> None:
+    """Phase 7(c): every width t = 2..13 at 1,000 states vs native."""
+    from infimum_tpu_torch.ff.bn254 import FR_MOD
+    from infimum_tpu_torch.hash.poseidon import poseidon_batch
+
+    rng = random.Random(POLL_SEED + 1)
+    for t in range(2, 14):
+        cols = [[rng.randrange(FR_MOD) for _ in range(1000)]
+                for _ in range(t - 1)]
+        _equal(f"width {t}", poseidon_batch(cols), native.poseidon_batch(
+            [list(r) for r in zip(*cols)], t - 1))
+    log("[poseidon] widths t = 2..13 at 1,000 states equal native")
+
+
+def foreign_modules() -> list[str]:
+    return [m for m in sys.modules
+            if m.split(".")[0] in ("jax", "jaxlib", "infimum_tpu")]
 
 
 def main() -> int:
@@ -132,9 +334,12 @@ def main() -> int:
     log(f"[probe] python {sys.version.split()[0]} torch {torch.__version__}"
         f" cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}"
         f" capability {cap[0]}.{cap[1]}")
-    log(f"[probe] nvidia-smi: {card_line()}")
+    log(f"[probe] nvidia-smi: {card_line()}, max SM clock "
+        f"{smi('clocks.max.sm')}")
     if cap != (9, 0):
         raise SystemExit(f"need compute capability 9.0, got {cap}")
+    mul_rate = int32_mul_rate()
+    log(f"[probe] int32 multiply rate {mul_rate:.4g}/s")
 
     # 2. build
     from infimum_tpu_torch import kernels
@@ -145,7 +350,7 @@ def main() -> int:
     log(kernels.BUILD_INFO["log"].strip())
 
     # 3. e2e at reference dims
-    from infimum_tpu import native
+    from infimum_tpu_torch import native
     from infimum_tpu_torch.client.e2e import run_reference_e2e
 
     if not native.available():
@@ -165,10 +370,10 @@ def main() -> int:
 
     # 4. kernel vs plain on the first process proof's inputs
     first = run.first_process
-    cmp = kernel_vs_plain(run.keys.process_pk, first["witness"])
+    cmp = kernel_vs_plain(run.keys.process_pk, first["witness"], mul_rate)
 
     # 5. negative checks
-    from infimum_tpu.curve.bn254_host import G1_GEN, g1_add
+    from infimum_tpu_torch.curve.bn254_host import G1_GEN, g1_add
     from infimum_tpu_torch.groth16.groth16 import Proof, verify
 
     vk, proof, publics = run.keys.process_pk.vk, first["proof"], first["publics"]
@@ -182,22 +387,36 @@ def main() -> int:
     log("[negative] tampered proof and wrong public input rejected")
 
     # 6. path checks
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k, n in launches.items()
+               if n == 0 and k.startswith("msm_")]
     if missing:
         raise AssertionError(f"kernels never launched in the e2e: {missing}")
-    jax_mods = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
-    if jax_mods:
-        raise AssertionError(f"JAX was imported: {jax_mods[:5]}")
-    log("[path] all kernels launched in the e2e run; no JAX imported")
+    if foreign_modules():
+        raise AssertionError(f"JAX or infimum_tpu imported: "
+                             f"{foreign_modules()[:5]}")
+    log("[path] all MSM kernels launched in the e2e run; no JAX and no "
+        "infimum_tpu module imported")
+
+    # 7. Poseidon: the poll's trees, the benchmark's batch, every width
+    launches["poseidon_perm"] = poll_trees(native)
+    cmp["poseidon_perm"] = bench_batch(native, mul_rate)
+    width_sweep(native)
+    if launches["poseidon_perm"] == 0:
+        raise AssertionError("poseidon_perm never launched in the trees")
+    if foreign_modules():
+        raise AssertionError(f"JAX or infimum_tpu imported: "
+                             f"{foreign_modules()[:5]}")
+    log(f"[path] poseidon_perm launched {launches['poseidon_perm']} times "
+        f"for the poll's trees; no JAX and no infimum_tpu module imported")
 
     report = []
-    for base, source, replaces in KERNEL_ROWS:
-        for curve in ("g1", "g2"):
-            name = f"{base}_{curve}"
-            err, ms, plain_ms = cmp[name]
-            report.append(dict(name=name, route="cuda", source=source,
-                               replaces=replaces, launches=launches[name],
-                               max_abs_err=err, ms=ms, plain_ms=plain_ms))
+    for name, source, replaces in KERNEL_ROWS:
+        err, ms, plain_ms, bound_ms, bound_by = cmp[name]
+        report.append(dict(name=name, route="cuda", source=source,
+                           replaces=replaces, launches=launches[name],
+                           max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=None))
     print(json.dumps({"kernels": report}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

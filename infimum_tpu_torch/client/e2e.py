@@ -4,7 +4,7 @@ Counterpart of `infimum_tpu/client/e2e.py` `run_reference_e2e`: the same
 instantiation (ProcessMessages(10,2,1,2), domain 2^18, and
 TallyVotes(10,1,2), domain 2^14), the same participants, votes and seeds.
 The reference drives its lifecycle through the pallet, which imports the
-JAX package; here the lifecycle drives `infimum_tpu.maci.state.Poll`
+JAX package; here the lifecycle drives the port's `maci.state.Poll`
 directly, builds the vote messages as `client/user.py` does, and checks
 every proof against the poll's own public inputs before committing it,
 as `pallet/chain.py` `commit_outcome` does.
@@ -18,16 +18,16 @@ import sys
 import time
 from dataclasses import dataclass
 
-from ..groth16.groth16 import deserialize_proof, setup, verify
-from .prover import PollProver, ProverKeys
-from infimum_tpu.hash.cipher import poseidon_encrypt
-from infimum_tpu.hash.poseidon_host import poseidon
-from infimum_tpu.io.arkworks import (
-    fr_from_hash_bytes, fr_to_hash_bytes, serialize_proof,
+from ..groth16.groth16 import setup, verify
+from ..hash.cipher import poseidon_encrypt
+from ..hash.poseidon_host import poseidon
+from ..io.arkworks import (
+    deserialize_proof, fr_from_hash_bytes, fr_to_hash_bytes, serialize_proof,
 )
-from infimum_tpu.maci.keys import Keypair
-from infimum_tpu.maci.replay import pack_command
-from infimum_tpu.maci.state import Poll, PollConfig
+from ..maci.keys import Keypair
+from ..maci.replay import pack_command
+from ..maci.state import Poll, PollConfig
+from .prover import PollProver, ProverKeys
 
 REFERENCE_CONFIG = dict(registration_depth=10, interaction_depth=2,
                         process_subtree_depth=1, tally_subtree_depth=1,

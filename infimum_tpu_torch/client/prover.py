@@ -18,17 +18,17 @@ import random
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
+from ..circuits.process import ProcessCircuit
+from ..circuits.tally import TallyCircuit
 from ..groth16.groth16 import ProvingKey, prove, setup, verify
-from infimum_tpu.circuits.process import ProcessCircuit
-from infimum_tpu.circuits.tally import TallyCircuit
-from infimum_tpu.hash.poseidon_host import poseidon
-from infimum_tpu.io.arkworks import fr_to_hash_bytes, serialize_proof
-from infimum_tpu.maci.keys import Keypair
-from infimum_tpu.maci.replay import MaciReplay
-from infimum_tpu.maci.state import PollOutcome
-from infimum_tpu.tree.full import FullTree
-from infimum_tpu.witness.process import ProcessWitnessBuilder
-from infimum_tpu.witness.tally import Ballot, TallyWitnessBuilder
+from ..hash.poseidon_host import poseidon
+from ..io.arkworks import fr_to_hash_bytes, serialize_proof
+from ..maci.keys import Keypair
+from ..maci.replay import MaciReplay
+from ..maci.state import PollOutcome
+from ..tree.full import FullTree
+from ..witness.process import ProcessWitnessBuilder
+from ..witness.tally import Ballot, TallyWitnessBuilder
 
 
 @dataclass
@@ -60,7 +60,7 @@ class ProverKeys:
                  process_subtree_depth: int, tally_subtree_depth: int,
                  vote_option_tree_depth: int,
                  rng: random.Random | None = None,
-                 device="cpu") -> "ProverKeys":
+                 device="cuda") -> "ProverKeys":
         """Build both circuits and run the (single-party) setup on
         `device`, process first, as the reference does."""
         rng = rng or random.Random(0xC0FFEE)
@@ -77,7 +77,7 @@ class PollProver:
 
     def __init__(self, keys: ProverKeys, coordinator: Keypair, poll_config,
                  poll_end_timestamp: int, rng: random.Random | None = None,
-                 device="cpu"):
+                 device="cuda"):
         self.keys = keys
         self.rng = rng or random.Random(0x5EED)
         self.device = device

@@ -1,14 +1,17 @@
-// BN254 Fq / Fq2 arithmetic and the RCB complete addition formulas, as
-// __device__ code for the MSM kernels (msm_accum.cu, msm_weighted.cu).
+// BN254 prime-field (Fq, Fr) and Fq2 arithmetic and the RCB complete
+// addition formulas, as __device__ code for the MSM kernels (msm_accum.cu,
+// msm_weighted.cu) and the Poseidon kernel (poseidon_perm.cu).
 //
 // Replaces the in-kernel helpers of infimum_tpu/msm/pallas_field.py (Fq,
-// Fq2, rcb_add, rcb_add_mixed). An Fq element is 8 little-endian 32-bit
-// words in Montgomery form with R = 2^256: the same integer as the
-// reference's 16 x 16-bit limbs, so word i = limb 2i | limb 2i+1 << 16.
-// Multiplication is CIOS Montgomery with 32x32->64-bit products; the TPU's
-// 16-bit limbs and exact-f32 column tricks are not needed on this card.
-// An Fq2 element is (c0, c1) with u^2 = -1, words c0[0..7] then c1[0..7].
-// Every function is inline and straight-line over registers.
+// Fq2, rcb_add, rcb_add_mixed) and infimum_tpu/ff/pallas_fp.py (Fr). A
+// field element is 8 little-endian 32-bit words in Montgomery form with
+// R = 2^256: the same integer as the reference's 16 x 16-bit limbs, so word
+// i = limb 2i | limb 2i+1 << 16. Multiplication is CIOS Montgomery with
+// 32x32->64-bit products; the TPU's 16-bit limbs and exact-f32 column
+// tricks are not needed on this card. Fp<Params> is generic over the
+// modulus: Fq = Fp<FqParams>, Fr = Fp<FrParams>. An Fq2 element is
+// (c0, c1) with u^2 = -1, words c0[0..7] then c1[0..7]. Every function is
+// inline and straight-line over registers.
 //
 // The constants below are checked against the Python values by
 // tests/test_torch_msm.py (test_field_header_constants).
@@ -31,8 +34,44 @@ namespace inf {
                       0xd95d4664u, 0x03873e63u, 0x082ab8f4u, 0x0e75b5b1u}
 #define INF_G2_B3_C1 {0x7596fe35u, 0xaab7c666u, 0xbb6a27bau, 0x31d21a78u, \
                       0x680401ffu, 0x85dd7297u, 0xdf39a7e9u, 0x03c52d6au}
+// r = 21888242871839275222246405745257275088548364400416034343698204186575808495617
+#define INF_FR_P {0xf0000001u, 0x43e1f593u, 0x79b97091u, 0x2833e848u, \
+                  0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u}
+// -r^-1 mod 2^32
+#define INF_FR_INV 0xefffffffu
+// R mod r (1 in Montgomery form)
+#define INF_FR_ONE {0x4ffffffbu, 0xac96341cu, 0x9f60cd29u, 0x36fc7695u, \
+                    0x7879462eu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u}
 
-struct Fq {
+// A modulus as the device code reads it: word i of the modulus and of
+// R mod modulus (constant once the word loops unroll), and -modulus^-1
+// mod 2^32. Both moduli are below 2^254.
+struct FqParams {
+  static constexpr uint32_t INV = INF_FQ_INV;
+  static __device__ __forceinline__ uint32_t p(int i) {
+    constexpr uint32_t P[8] = INF_FQ_P;
+    return P[i];
+  }
+  static __device__ __forceinline__ uint32_t one(int i) {
+    constexpr uint32_t ONE[8] = INF_FQ_ONE;
+    return ONE[i];
+  }
+};
+
+struct FrParams {
+  static constexpr uint32_t INV = INF_FR_INV;
+  static __device__ __forceinline__ uint32_t p(int i) {
+    constexpr uint32_t P[8] = INF_FR_P;
+    return P[i];
+  }
+  static __device__ __forceinline__ uint32_t one(int i) {
+    constexpr uint32_t ONE[8] = INF_FR_ONE;
+    return ONE[i];
+  }
+};
+
+template <class Params>
+struct Fp {
   static constexpr int WORDS = 8;
   struct E {
     uint32_t w[8];
@@ -46,10 +85,9 @@ struct Fq {
   }
 
   static __device__ __forceinline__ E one() {
-    constexpr uint32_t ONE[8] = INF_FQ_ONE;
     E r;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) r.w[i] = ONE[i];
+    for (int i = 0; i < 8; ++i) r.w[i] = Params::one(i);
     return r;
   }
 
@@ -62,12 +100,11 @@ struct Fq {
 
   // r - p when r >= p, else r (r < 2p)
   static __device__ __forceinline__ E reduce_once(const E& r) {
-    constexpr uint32_t P[8] = INF_FQ_P;
     E d;
     uint32_t br = 0;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const uint64_t v = (uint64_t)r.w[i] - P[i] - br;
+      const uint64_t v = (uint64_t)r.w[i] - Params::p(i) - br;
       d.w[i] = (uint32_t)v;
       br = (uint32_t)(v >> 63);
     }
@@ -87,7 +124,6 @@ struct Fq {
   }
 
   static __device__ __forceinline__ E sub(const E& a, const E& b) {
-    constexpr uint32_t P[8] = INF_FQ_P;
     E d;
     uint32_t br = 0;
 #pragma unroll
@@ -100,7 +136,7 @@ struct Fq {
       uint64_t c = 0;
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        c += (uint64_t)d.w[i] + P[i];
+        c += (uint64_t)d.w[i] + Params::p(i);
         d.w[i] = (uint32_t)c;
         c >>= 32;
       }
@@ -113,7 +149,6 @@ struct Fq {
   // CIOS Montgomery product a * b * 2^-256 mod p. Every 64-bit accumulator
   // step adds at most (2^32-1)^2 + 2(2^32-1) = 2^64-1, so nothing wraps.
   static __device__ __forceinline__ E mul(const E& a, const E& b) {
-    constexpr uint32_t P[8] = INF_FQ_P;
     uint32_t t[10];
 #pragma unroll
     for (int i = 0; i < 10; ++i) t[i] = 0;
@@ -129,11 +164,11 @@ struct Fq {
       c += t[8];
       t[8] = (uint32_t)c;
       t[9] = (uint32_t)(c >> 32);
-      const uint32_t m = t[0] * INF_FQ_INV;
-      c = ((uint64_t)t[0] + (uint64_t)m * P[0]) >> 32;
+      const uint32_t m = t[0] * Params::INV;
+      c = ((uint64_t)t[0] + (uint64_t)m * Params::p(0)) >> 32;
 #pragma unroll
       for (int j = 1; j < 8; ++j) {
-        c += (uint64_t)t[j] + (uint64_t)m * P[j];
+        c += (uint64_t)t[j] + (uint64_t)m * Params::p(j);
         t[j - 1] = (uint32_t)c;
         c >>= 32;
       }
@@ -147,7 +182,7 @@ struct Fq {
     return reduce_once(r);
   }
 
-  // 9x = 3b * x for G1 (b = 3): three doublings and an add
+  // 9x = 3b * x for G1 (b = 3), over Fq: three doublings and an add
   static __device__ __forceinline__ E b3(const E& x) {
     const E x2 = add(x, x);
     const E x4 = add(x2, x2);
@@ -168,6 +203,9 @@ struct Fq {
     for (int i = 0; i < 8; ++i) p[i * stride] = a.w[i];
   }
 };
+
+using Fq = Fp<FqParams>;
+using Fr = Fp<FrParams>;
 
 struct Fq2 {
   static constexpr int WORDS = 16;

@@ -13,13 +13,13 @@ from __future__ import annotations
 
 import torch
 
+from ..ff.bn254 import FQ_MOD, batch_inv_mod
 from ..ff.fp import FQ_CTX, NLIMBS, ints_to_tensor, tensor_to_ints
 from ..ff.fq2 import FQ2_CTX
-from infimum_tpu.curve.bn254_host import (
+from .bn254_host import (
     B2, G1_GEN, G2_GEN, _fq2_mul, g1_add, g1_double, g1_mul, g2_add,
     g2_double, g2_mul,
 )
-from infimum_tpu.ff.bn254 import FQ_MOD, batch_inv_mod
 
 
 class CurveDev:

@@ -17,9 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import _reference  # noqa: F401
-from infimum_tpu.ff.bn254 import FQ_MOD, FR_MOD
-from infimum_tpu.ff.limbs import (
+from .bn254 import FQ_MOD, FR_MOD
+from .limbs import (
     LIMB_BITS, LIMB_MASK, NLIMBS, batch_from_limbs, batch_to_limbs,
 )
 
@@ -41,6 +40,19 @@ def ints_to_tensor(xs, device) -> torch.Tensor:
 def tensor_to_ints(a: torch.Tensor) -> list[int]:
     """(..., 16) limb tensor -> python ints, flattened over leading dims."""
     return batch_from_limbs(a.reshape(-1, NLIMBS).cpu().numpy())
+
+
+def limbs_to_words(a: torch.Tensor) -> torch.Tensor:
+    """(..., 2k) int64 16-bit limbs -> (..., k) int32 words (the bit
+    pattern of the kernels' uint32 words)."""
+    w = a[..., 0::2] | (a[..., 1::2] << 16)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def words_to_limbs(w: torch.Tensor) -> torch.Tensor:
+    """(..., k) int32 words -> (..., 2k) int64 16-bit limbs."""
+    w = w.to(torch.int64) & 0xFFFFFFFF
+    return torch.stack([w & 0xFFFF, w >> 16], -1).flatten(-2)
 
 
 def _lm(*xs):

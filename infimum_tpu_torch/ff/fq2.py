@@ -10,8 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from .bn254 import FQ_MOD
 from .fp import FQ_CTX, NLIMBS
-from infimum_tpu.ff.bn254 import FQ_MOD
 
 F = FQ_CTX
 

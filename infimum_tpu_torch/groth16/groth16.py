@@ -11,8 +11,8 @@ same randomness and the same proofs:
     (a, b1, l, h over G1 and b2 over G2) are dispatched before any host
     wait, through the CUDA MSM kernels on a card; the proof is assembled on
     the host.
-  - verify(): the native C++ pairing (`infimum_tpu.native`), which reads
-    the keys and proofs through `infimum_tpu.io.arkworks`.
+  - verify(): the native C++ pairing (`native`), which reads the keys and
+    proofs through `io.arkworks`.
 """
 
 from __future__ import annotations
@@ -22,19 +22,19 @@ from dataclasses import dataclass
 
 import torch
 
+from ..curve.bn254_host import (
+    G1_GEN, G2_GEN, g1_add, g1_mul_fast, g1_neg, g2_add, g2_mul_fast,
+)
 from ..curve.proj import G1_DEV, G2_DEV, CurveDev
+from ..ff.bn254 import FR_MOD, batch_inv_mod, fr_inv
 from ..ff.fp import FR_CTX, NLIMBS, ints_to_tensor, tensor_to_ints
 from ..msm.fixed_base import fixed_base_mul_batch
 from ..msm.msm import (
     combine_window_points, encode_rows, msm_lanes, msm_rows_async,
 )
 from ..ntt.ntt import _root_of_unity, coset_ntt, coset_intt, intt
+from .r1cs import LC, ConstraintSystem
 from .rowval import SparseRows, eval_rows
-from infimum_tpu.curve.bn254_host import (
-    G1_GEN, G2_GEN, g1_add, g1_mul_fast, g1_neg, g2_add, g2_mul_fast,
-)
-from infimum_tpu.ff.bn254 import FR_MOD, batch_inv_mod, fr_inv
-from infimum_tpu.groth16.r1cs import LC, ConstraintSystem
 
 P = FR_MOD
 COSET_GEN = 5  # Fr's standard multiplicative generator (as arkworks)
@@ -128,7 +128,7 @@ def qap_polys_at_tau(cs: ConstraintSystem, tau: int):
 
 
 def setup(cs: ConstraintSystem, rng: random.Random | None = None,
-          device="cpu") -> ProvingKey:
+          device="cuda") -> ProvingKey:
     """Single-party trusted setup; draws tau, alpha, beta, gamma, delta from
     `rng` in the reference's order, so one seed gives the same key."""
     rng = rng or random.SystemRandom()
@@ -200,7 +200,7 @@ def h_rows(cs: ConstraintSystem, witness: list[int], device) -> torch.Tensor:
     return FR_CTX.from_mont(coset_intt(h_evals, logm, COSET_GEN))
 
 
-def compute_h(cs: ConstraintSystem, witness: list[int], device="cpu"):
+def compute_h(cs: ConstraintSystem, witness: list[int], device="cuda"):
     """Coefficients of h(x) = (a(x) b(x) - c(x)) / Z(x) as python ints."""
     h = tensor_to_ints(h_rows(cs, witness, device))
     m = _domain_size(cs)
@@ -244,7 +244,7 @@ def _msm_async(pk: ProvingKey, name: str, points, scalars: torch.Tensor,
 
 
 def prove(pk: ProvingKey, cs: ConstraintSystem, witness: list[int],
-          rng: random.Random | None = None, device="cpu") -> Proof:
+          rng: random.Random | None = None, device="cuda") -> Proof:
     rng = rng or random.SystemRandom()
     r = rng.randrange(P)
     s = rng.randrange(P)
@@ -277,22 +277,11 @@ def prove(pk: ProvingKey, cs: ConstraintSystem, witness: list[int],
     return Proof(a=pi_a, b=pi_b, c=pi_c)
 
 
-def deserialize_proof(proof_bytes: dict) -> Proof:
-    """Pallet-shaped {pi_a, pi_b, pi_c} byte vectors -> Proof, validating
-    each point (`io.arkworks.deserialize_proof` builds the reference's
-    Proof, whose module imports JAX)."""
-    from infimum_tpu.io.arkworks import deserialize_g1, deserialize_g2
-
-    return Proof(a=deserialize_g1(bytes(proof_bytes["pi_a"])),
-                 b=deserialize_g2(bytes(proof_bytes["pi_b"])),
-                 c=deserialize_g1(bytes(proof_bytes["pi_c"])))
-
-
 def verify(vk: VerifyingKey, proof: Proof, public_inputs: list[int]) -> bool:
     """Pairing check e(A,B) = e(alpha,beta) e(IC(x),gamma) e(C,delta) by the
     native C++ verifier; raises when the native library cannot load."""
-    from infimum_tpu import native
-    from infimum_tpu.io.arkworks import serialize_proof, serialize_vkey
+    from .. import native
+    from ..io.arkworks import serialize_proof, serialize_vkey
 
     if not native.available():
         raise RuntimeError("native library unavailable: "

@@ -11,8 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..ff.limbs import NLIMBS, batch_from_limbs
 from .groth16 import ProvingKey, VerifyingKey
-from infimum_tpu.ff.limbs import NLIMBS, batch_from_limbs
 
 FORMAT_VERSION = 1
 _G1_SINGLES = ("alpha_g1", "beta_g1", "delta_g1")

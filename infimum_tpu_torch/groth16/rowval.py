@@ -16,8 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from ..ff.bn254 import FR_MOD
 from ..ff.fp import FR_CTX, NLIMBS, carry, ints_to_tensor, sub_borrow
-from infimum_tpu.ff.bn254 import FR_MOD
 
 P = FR_MOD
 TERM_CHUNK = 1 << 18

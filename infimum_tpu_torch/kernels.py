@@ -8,7 +8,8 @@ fresh build, an unchanged one is loaded as it is. The library is bound with
 C entry point launches on the stream it is given and returns
 `cudaGetLastError()`, and the wrapper raises when that is not 0.
 
-`Kernel.launches` counts the launches of one kernel for one curve, so a run
+`Kernel.launches` counts the launches of one kernel instance (an MSM
+kernel for one curve, the Poseidon permutation for every width), so a run
 can show that its main path went through the kernel. Nothing here is
 imported or built unless a CUDA tensor reaches a kernel wrapper.
 """
@@ -27,7 +28,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
-SOURCES = ("field.cuh", "msm_accum.cu", "msm_weighted.cu")
+SOURCES = ("field.cuh", "msm_accum.cu", "msm_weighted.cu", "poseidon_perm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "--resource-usage")
 
@@ -58,6 +59,7 @@ KERNELS = {
     "msm_accum_g2": Kernel("inf_msm_accum_g2", 5, 3),
     "msm_weighted_g1": Kernel("inf_msm_weighted_g1", 3, 2),
     "msm_weighted_g2": Kernel("inf_msm_weighted_g2", 3, 2),
+    "poseidon_perm": Kernel("inf_poseidon_perm", 4, 3),
 }
 
 # the last build of this process: {"seconds", "path", "log"} (log holds

@@ -15,9 +15,9 @@ import functools
 import torch
 
 from ..curve.proj import CURVES, CurveDev, G1_DEV
+from ..ff.bn254 import FR_MOD
 from ..ff.fp import NLIMBS, ints_to_tensor
-from infimum_tpu.ff.bn254 import FR_MOD
-from infimum_tpu.ff.limbs import LIMB_BITS
+from ..ff.limbs import LIMB_BITS
 
 CHUNK = 1 << 17
 
@@ -52,7 +52,7 @@ def _mul_chunk(curve: CurveDev, tab: torch.Tensor, sc: torch.Tensor, c: int):
     return acc
 
 
-def fixed_base_mul_batch(scalars, curve: CurveDev = G1_DEV, device="cpu",
+def fixed_base_mul_batch(scalars, curve: CurveDev = G1_DEV, device="cuda",
                          c: int = 8):
     """[s * GEN for s in scalars] as host affine points (None for 0)."""
     if not scalars:

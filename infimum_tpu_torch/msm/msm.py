@@ -32,8 +32,8 @@ import torch.nn.functional as tnf
 
 from .. import kernels
 from ..curve.proj import CURVES
-from ..ff.fp import NLIMBS, ints_to_tensor
-from infimum_tpu.ff.bn254 import FR_MOD
+from ..ff.bn254 import FR_MOD
+from ..ff.fp import NLIMBS, ints_to_tensor, limbs_to_words, words_to_limbs
 
 # lane counts on the card: each (window, lane) thread walks T = N / L
 # entries; at the poll's shapes (130k-260k points) T is 36-70
@@ -67,19 +67,7 @@ def msm_lanes(n: int, curve: str) -> int:
     return lanes
 
 
-# -- limb <-> word packing ----------------------------------------------------------
-
-def limbs_to_words(a: torch.Tensor) -> torch.Tensor:
-    """(..., 2k) int64 16-bit limbs -> (..., k) int32 words."""
-    w = a[..., 0::2] | (a[..., 1::2] << 16)
-    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
-
-
-def words_to_limbs(w: torch.Tensor) -> torch.Tensor:
-    """(..., k) int32 words -> (..., 2k) int64 16-bit limbs."""
-    w = w.to(torch.int64) & 0xFFFFFFFF
-    return torch.stack([w & 0xFFFF, w >> 16], -1).flatten(-2)
-
+# -- points as words ----------------------------------------------------------------
 
 def _point_words(p, spec: CurveSpec) -> torch.Tensor:
     """Projective (X, Y, Z) of (*batch, field shape) -> (*batch, PW) words."""
@@ -312,7 +300,7 @@ def encode_inputs(points, scalars, lanes: int, curve: str = "g1",
     return rows, sc
 
 
-def msm(points, scalars, curve: str = "g1", device="cpu", lanes=None):
+def msm(points, scalars, curve: str = "g1", device="cuda", lanes=None):
     """MSM of host affine points (no infinities) and int scalars."""
     if not points:
         return None

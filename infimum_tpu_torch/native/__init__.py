@@ -1,0 +1,286 @@
+# Copied from infimum_tpu/native/__init__.py; the port keeps its own host layers.
+"""ctypes bindings for the native (C++) pallet-core library.
+
+The reference implements its on-chain side natively in Rust (pallet/src/:
+Poseidon hasher, amortized Merkle tree, arkworks deserialization, Groth16
+verifier). This package binds the equivalent C++ library
+(native/libinfimum_native.so): same hashes, same tree semantics, same byte
+contracts, same pairing check — golden-tested against both the Python stack
+and the reference fixtures. Build with `make -C native` (done on demand
+here if a compiler is available); `available()` gates all use.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import pathlib
+import subprocess
+
+_NATIVE_DIR = pathlib.Path(__file__).resolve().parents[2] / "native"
+_LIB_PATH = _NATIVE_DIR / "libinfimum_native.so"
+
+_lib = None
+_tried = False
+
+
+def _load():
+    global _lib, _tried
+    if _lib is not None or _tried:
+        return _lib
+    _tried = True
+    if not _LIB_PATH.exists():
+        try:
+            subprocess.run(["make", "-C", str(_NATIVE_DIR)], check=True,
+                           capture_output=True, timeout=300)
+        except Exception:
+            return None
+    try:
+        lib = ctypes.CDLL(str(_LIB_PATH))
+    except OSError:
+        return None
+    lib.inf_imt_new.restype = ctypes.c_void_p
+    lib.inf_imt_new.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.inf_imt_free.argtypes = [ctypes.c_void_p]
+    lib.inf_imt_insert.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+    lib.inf_imt_merge.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.inf_imt_root.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+    lib.inf_imt_depth.argtypes = [ctypes.c_void_p]
+    lib.inf_imt_count.argtypes = [ctypes.c_void_p]
+    lib.inf_imt_count.restype = ctypes.c_uint64
+    lib.inf_blake512.argtypes = [ctypes.c_char_p, ctypes.c_uint64,
+                                 ctypes.c_char_p]
+    lib.inf_blake512.restype = None
+    lib.inf_hintprog_new.restype = ctypes.c_void_p
+    lib.inf_hintprog_new.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_char_p,
+        ctypes.c_int, ctypes.c_int]
+    lib.inf_hintprog_free.argtypes = [ctypes.c_void_p]
+    lib.inf_hintprog_run.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int,
+        ctypes.c_char_p]
+    _lib = lib
+    return _lib
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+def _fr_bytes(x: int) -> bytes:
+    return int(x).to_bytes(32, "big")
+
+
+def poseidon(inputs: list[int]) -> int:
+    """Native circom Poseidon (same contract as hash/poseidon_host.py)."""
+    lib = _load()
+    buf = b"".join(_fr_bytes(x) for x in inputs)
+    out = ctypes.create_string_buffer(32)
+    rc = lib.inf_poseidon(buf, len(inputs), out)
+    if rc != 0:
+        raise ValueError(f"native poseidon failed rc={rc}")
+    return int.from_bytes(out.raw, "big")
+
+
+def poseidon2_batch(pairs: list[tuple[int, int]]) -> list[int]:
+    """Batched Poseidon2 (Merkle level hashing on the host)."""
+    lib = _load()
+    buf = b"".join(_fr_bytes(a) + _fr_bytes(b) for a, b in pairs)
+    out = ctypes.create_string_buffer(32 * len(pairs))
+    lib.inf_poseidon2_batch(buf, len(pairs), out)
+    return [int.from_bytes(out.raw[32 * i: 32 * i + 32], "big")
+            for i in range(len(pairs))]
+
+
+def poseidon_perm(state: list[int]) -> list[int]:
+    """Native full Poseidon permutation (hash/poseidon_host.poseidon_perm
+    contract; the duplex cipher needs all t output elements)."""
+    lib = _load()
+    t = len(state)
+    buf = b"".join(_fr_bytes(x) for x in state)
+    out = ctypes.create_string_buffer(32 * t)
+    rc = lib.inf_poseidon_perm(buf, t, out)
+    if rc != 0:
+        raise ValueError(f"native poseidon_perm failed rc={rc}")
+    return [int.from_bytes(out.raw[32 * i: 32 * i + 32], "big")
+            for i in range(t)]
+
+
+def poseidon_batch(rows: list[list[int]], n: int) -> list[int]:
+    """Batched width-n Poseidon hash over m rows (one boundary crossing)."""
+    lib = _load()
+    m = len(rows)
+    buf = b"".join(_fr_bytes(x) for row in rows for x in row)
+    out = ctypes.create_string_buffer(32 * m)
+    rc = lib.inf_poseidon_batch(buf, n, m, out)
+    if rc != 0:
+        raise ValueError(f"native poseidon_batch failed rc={rc}")
+    return [int.from_bytes(out.raw[32 * i: 32 * i + 32], "big")
+            for i in range(m)]
+
+
+class NativeIMT:
+    """Native amortized incremental Merkle tree (tree/imt.py semantics,
+    reference pallet/src/poll/state.rs:176-281)."""
+
+    def __init__(self, arity: int, full_depth: int, zero_seed: bool = False):
+        self._lib = _load()
+        self._h = self._lib.inf_imt_new(arity, full_depth, int(zero_seed))
+        self.arity = arity
+        self.full_depth = full_depth
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.inf_imt_free(self._h)
+            self._h = None
+
+    def insert(self, leaf: int) -> None:
+        rc = self._lib.inf_imt_insert(self._h, _fr_bytes(leaf))
+        if rc != 0:
+            from ..tree.imt import MerkleTreeError
+
+            raise MerkleTreeError(rc)
+
+    def merge(self, to_depth: bool) -> None:
+        rc = self._lib.inf_imt_merge(self._h, int(to_depth))
+        if rc != 0:
+            from ..tree.imt import MerkleTreeError
+
+            raise MerkleTreeError(rc)
+
+    @property
+    def root(self) -> int | None:
+        out = ctypes.create_string_buffer(32)
+        if not self._lib.inf_imt_root(self._h, out):
+            return None
+        return int.from_bytes(out.raw, "big")
+
+    @property
+    def depth(self) -> int:
+        return self._lib.inf_imt_depth(self._h)
+
+    @property
+    def count(self) -> int:
+        return self._lib.inf_imt_count(self._h)
+
+
+def bjj_mul(p: tuple[int, int], n: int) -> tuple[int, int]:
+    """Native BabyJubJub scalar multiplication (curve/babyjubjub.py twin)."""
+    lib = _load()
+    out = ctypes.create_string_buffer(64)
+    rc = lib.inf_bjj_mul(_fr_bytes(p[0]) + _fr_bytes(p[1]),
+                         int(n).to_bytes(32, "big"), out)
+    if rc != 0:
+        raise ValueError(f"native bjj_mul failed rc={rc}")
+    return (int.from_bytes(out.raw[:32], "big"),
+            int.from_bytes(out.raw[32:], "big"))
+
+
+def bjj_add(p: tuple[int, int], q: tuple[int, int]) -> tuple[int, int]:
+    """Native BabyJubJub point addition."""
+    lib = _load()
+    out = ctypes.create_string_buffer(64)
+    rc = lib.inf_bjj_add(_fr_bytes(p[0]) + _fr_bytes(p[1]),
+                         _fr_bytes(q[0]) + _fr_bytes(q[1]), out)
+    if rc != 0:
+        raise ValueError(f"native bjj_add failed rc={rc}")
+    return (int.from_bytes(out.raw[:32], "big"),
+            int.from_bytes(out.raw[32:], "big"))
+
+
+def blake512(data: bytes) -> bytes:
+    """Native BLAKE-512 (utils/blake512.py twin)."""
+    lib = _load()
+    out = ctypes.create_string_buffer(64)
+    lib.inf_blake512(bytes(data), len(data), out)
+    return out.raw
+
+
+class NativeHintProg:
+    """Compiled witness hint program (native/src/hintprog.cc). Built once
+    per ConstraintSystem from numpy op/term arrays; `run` evaluates the
+    full witness from an input assignment."""
+
+    def __init__(self, ops, term_idx, term_coeff_be: bytes, num_vars: int):
+        import numpy as np
+
+        self._lib = _load()
+        self._ops = np.ascontiguousarray(ops, dtype=np.int64)
+        self._idx = np.ascontiguousarray(term_idx, dtype=np.uint32)
+        self.num_vars = num_vars
+        self._h = self._lib.inf_hintprog_new(
+            self._ops.ctypes.data_as(ctypes.c_void_p),
+            len(self._ops) // 7,
+            self._idx.ctypes.data_as(ctypes.c_void_p),
+            term_coeff_be, len(self._idx), num_vars)
+        if not self._h:
+            raise ValueError("native hint program rejected (bad coeff)")
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.inf_hintprog_free(self._h)
+            self._h = None
+
+    def run(self, inputs: dict[int, int]) -> list[int]:
+        import numpy as np
+
+        idx = np.fromiter(inputs.keys(), np.uint32, count=len(inputs))
+        vals = b"".join(_fr_bytes(v) for v in inputs.values())
+        out = ctypes.create_string_buffer(32 * self.num_vars)
+        rc = self._lib.inf_hintprog_run(
+            self._h, idx.ctypes.data_as(ctypes.c_void_p), vals, len(inputs),
+            out)
+        if rc != 0:
+            raise ValueError(f"native hint program failed rc={rc}")
+        raw = out.raw
+        return [int.from_bytes(raw[32 * i: 32 * i + 32], "big")
+                for i in range(self.num_vars)]
+
+
+def merkle_zero(arity: int, depth: int) -> int:
+    lib = _load()
+    out = ctypes.create_string_buffer(32)
+    rc = lib.inf_merkle_zero(arity, depth, out)
+    if rc != 0:
+        raise ValueError("bad zero-table index")
+    return int.from_bytes(out.raw, "big")
+
+
+def g1_validate(b: bytes) -> bool:
+    return _load().inf_g1_validate(bytes(b)) == 0
+
+
+def g2_validate(b: bytes) -> bool:
+    return _load().inf_g2_validate(bytes(b)) == 0
+
+
+def g1_roundtrip(b: bytes) -> bytes:
+    out = ctypes.create_string_buffer(64)
+    if _load().inf_g1_roundtrip(bytes(b), out) != 0:
+        raise ValueError("malformed G1")
+    return out.raw
+
+
+def g2_roundtrip(b: bytes) -> bytes:
+    out = ctypes.create_string_buffer(128)
+    if _load().inf_g2_roundtrip(bytes(b), out) != 0:
+        raise ValueError("malformed G2")
+    return out.raw
+
+
+def groth16_verify(vk_bytes: dict, proof_bytes: dict,
+                   publics: list[int]) -> bool:
+    """Native pairing verification over pallet-shaped byte containers
+    (the {alpha_g1, beta_g2, gamma_g2, delta_g2, gamma_abc_g1} /
+    {pi_a, pi_b, pi_c} dicts of io/arkworks.py)."""
+    lib = _load()
+    ic = b"".join(bytes(p) for p in vk_bytes["gamma_abc_g1"])
+    pub = b"".join(_fr_bytes(x) for x in publics)
+    rc = lib.inf_groth16_verify(
+        bytes(vk_bytes["alpha_g1"]), bytes(vk_bytes["beta_g2"]),
+        bytes(vk_bytes["gamma_g2"]), bytes(vk_bytes["delta_g2"]),
+        ic, len(vk_bytes["gamma_abc_g1"]),
+        bytes(proof_bytes["pi_a"]), bytes(proof_bytes["pi_b"]),
+        bytes(proof_bytes["pi_c"]), pub, len(publics))
+    if rc < 0:
+        raise ValueError(f"malformed verify input rc={rc}")
+    return rc == 1

@@ -15,10 +15,10 @@ import functools
 import numpy as np
 import torch
 
-from ..ff.fp import FR_CTX, NLIMBS
-from infimum_tpu.ff.bn254 import (
+from ..ff.bn254 import (
     FR_MOD, FR_TWO_ADIC_ROOT, FR_TWO_ADICITY, fr_inv,
 )
+from ..ff.fp import FR_CTX, NLIMBS
 
 
 def _root_of_unity(n: int) -> int:

@@ -78,7 +78,7 @@ def case(request):
     assert cs.check(w)
     seed = {"toy": 42, "cubic": 7, "synthetic": 300}[request.param]
     pk_ref = ref.setup(cs, random.Random(seed))
-    pk_port = port.setup(cs, random.Random(seed))
+    pk_port = port.setup(cs, random.Random(seed), device="cpu")
     return cs, w, publics, seed, pk_ref, pk_port
 
 
@@ -94,7 +94,7 @@ def test_prove_matches_reference_and_verifies(case, monkeypatch):
     monkeypatch.setenv("INFIMUM_HOST_H_THRESHOLD", "0")
     cs, w, publics, seed, pk_ref, pk_port = case
     want = ref.prove(pk_ref, cs, w, random.Random(seed + 1))
-    got = port.prove(pk_port, cs, w, random.Random(seed + 1))
+    got = port.prove(pk_port, cs, w, random.Random(seed + 1), device="cpu")
     assert (got.a, got.b, got.c) == (want.a, want.b, want.c)
     assert ref.verify(pk_ref.vk, got, publics)
     assert port.verify(pk_port.vk, got, publics)
@@ -114,7 +114,7 @@ def test_rows_and_h_match_reference(case):
     got = eval_rows(port.sparse_rows(cs, "cpu"), w, m)
     for g, r in zip(got, want):
         assert np.array_equal(g.numpy(), np.asarray(r).astype(np.int64))
-    assert port.compute_h(cs, w) == ref.compute_h_host(cs, w)
+    assert port.compute_h(cs, w, "cpu") == ref.compute_h_host(cs, w)
 
 
 def test_reference_keys_prove_the_same_proof(case, tmp_path, monkeypatch):
@@ -130,6 +130,6 @@ def test_reference_keys_prove_the_same_proof(case, tmp_path, monkeypatch):
         assert getattr(carried, f) == getattr(pk_ref, f)
         assert getattr(loaded, f) == getattr(pk_ref, f)
     assert loaded.vk == carried.vk
-    got = port.prove(loaded, cs, w, random.Random(seed + 2))
+    got = port.prove(loaded, cs, w, random.Random(seed + 2), device="cpu")
     want = ref.prove(pk_ref, cs, w, random.Random(seed + 2))
     assert (got.a, got.b, got.c) == (want.a, want.b, want.c)

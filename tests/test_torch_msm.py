@@ -59,10 +59,12 @@ def test_field_header_constants():
         return sum(w << (32 * i) for i, w in enumerate(ws))
 
     R = 1 << 256
-    assert words("INF_FQ_P") == FQ_MOD
-    assert words("INF_FQ_ONE") == R % FQ_MOD
-    inv = int(re.search(r"#define INF_FQ_INV (0x[0-9a-f]+)u", src).group(1), 16)
-    assert (inv * FQ_MOD) % (1 << 32) == (1 << 32) - 1
+    for field, mod in (("FQ", FQ_MOD), ("FR", FR_MOD)):
+        assert words(f"INF_{field}_P") == mod
+        assert words(f"INF_{field}_ONE") == R % mod
+        inv = int(re.search(rf"#define INF_{field}_INV (0x[0-9a-f]+)u",
+                            src).group(1), 16)
+        assert (inv * mod) % (1 << 32) == (1 << 32) - 1
     assert words("INF_G2_B3_C0") == 3 * B2[0] * R % FQ_MOD
     assert words("INF_G2_B3_C1") == 3 * B2[1] * R % FQ_MOD
 
@@ -102,14 +104,14 @@ def test_msm_matches_host(curve, n):
         scs[3] = scs[2]                 # ...with the same digits
     lanes = M.msm_lanes(n, curve)
     assert n % lanes                # padding path: n not a lane multiple
-    assert M.msm(pts, scs, curve) == msm_host_fast(pts, scs, curve)
+    assert M.msm(pts, scs, curve, "cpu") == msm_host_fast(pts, scs, curve)
 
 
 @pytest.mark.parametrize("curve", ["g1", "g2"])
 def test_msm_all_zero_and_empty(curve):
     gen = CURVES[curve][0]
-    assert M.msm([gen, gen], [0, 0], curve) is None
-    assert M.msm([], [], curve) is None
+    assert M.msm([gen, gen], [0, 0], curve, "cpu") is None
+    assert M.msm([], [], curve, "cpu") is None
 
 
 @pytest.mark.parametrize("curve", ["g1", "g2"])

@@ -1,11 +1,12 @@
-"""infimum_tpu_torch must import and prove without JAX.
+"""infimum_tpu_torch must import and prove without JAX or the JAX package.
 
-The machine with the GPU has no JAX, so the port and everything it imports
-(the reference's host layers, reached through infimum_tpu_torch._reference)
-must never import it. A subprocess installs a meta-path finder that refuses
-`jax`, imports the package and its end-to-end client, proves the toy
-circuit on the CPU, verifies it natively, and checks that no `jax*` module
-was loaded."""
+The machine with the GPU has no JAX, and the port keeps its own copies of
+the host layers it needs, so neither `jax` nor `infimum_tpu` may be
+imported by it. A subprocess installs a meta-path finder that refuses both,
+imports the package, its end-to-end client and its Poseidon and tree
+modules, builds the toy circuit with the port's own r1cs, proves it on the
+CPU, verifies it natively, and checks that no `jax*` or `infimum_tpu*`
+module was loaded."""
 
 import os
 import subprocess
@@ -18,20 +19,26 @@ SCRIPT = textwrap.dedent("""
     import random
     import sys
 
-    class RefuseJax:
+    REFUSED = ("jax", "jaxlib", "infimum_tpu")
+
+    class Refuse:
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib"):
-                raise ImportError("JAX refused: " + name)
+            if name.split(".")[0] in REFUSED:
+                raise ImportError("refused: " + name)
             return None
 
-    sys.meta_path.insert(0, RefuseJax())
+    sys.meta_path.insert(0, Refuse())
 
     import infimum_tpu_torch
     import infimum_tpu_torch.client.e2e
     import infimum_tpu_torch.client.prover
-    from infimum_tpu.groth16.r1cs import ConstraintSystem, LC
-    from infimum_tpu.io.arkworks import serialize_proof
+    import infimum_tpu_torch.hash.poseidon
+    import infimum_tpu_torch.parallel.tree
     from infimum_tpu_torch.groth16 import groth16 as g16
+    from infimum_tpu_torch.groth16.r1cs import ConstraintSystem, LC
+    from infimum_tpu_torch.io.arkworks import (
+        deserialize_proof, serialize_proof,
+    )
 
     cs = ConstraintSystem()
     prod, total = cs.alloc_public(), cs.alloc_public()
@@ -41,10 +48,11 @@ SCRIPT = textwrap.dedent("""
     w = cs.compute_witness({prod: 21, total: 10, x: 3, y: 7})
     pk = g16.setup(cs, random.Random(42), device="cpu")
     proof = g16.prove(pk, cs, w, random.Random(43), device="cpu")
-    again = g16.deserialize_proof(serialize_proof(proof))
+    again = deserialize_proof(serialize_proof(proof))
+    assert type(again) is g16.Proof
     assert g16.verify(pk.vk, again, [21, 10])
     assert not g16.verify(pk.vk, again, [22, 10])
-    loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
+    loaded = [m for m in sys.modules if m.split(".")[0] in REFUSED]
     assert not loaded, loaded
     print("NOJAX-OK")
 """)

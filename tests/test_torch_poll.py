@@ -39,7 +39,7 @@ def test_tally_batch_through_poll_prover(monkeypatch):
     tc = TallyCircuit(state_tree_depth=3, int_state_tree_depth=1,
                       vote_option_tree_depth=1)
     assert len(tc.cs.constraints) == 4264
-    tally_pk = port.setup(tc.cs, random.Random(5))
+    tally_pk = port.setup(tc.cs, random.Random(5), device="cpu")
     ref_pk = ref.setup(tc.cs, random.Random(5))
     assert tally_pk.h_query == ref_pk.h_query
     assert vars(tally_pk.vk) == vars(ref_pk.vk)
@@ -66,7 +66,7 @@ def test_tally_batch_through_poll_prover(monkeypatch):
     keys = ProverKeys(pc, tc, None, tally_pk)
     prover = PollProver(keys, coordinator, poll.config,
                         poll_end_timestamp=poll.voting_period_end(),
-                        rng=random.Random(7))
+                        rng=random.Random(7), device="cpu")
     prover.ingest_events(pallet.events, 0)
     process_batches, tally_batches, _ = prover.get_poll_results()
     for _, meta in process_batches:
