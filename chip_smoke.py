@@ -20,7 +20,8 @@ Phases, in order; any failure raises and exits nonzero:
      sign-up leaves in the binary depth-10 registration tree and 15,624
      message leaves in the quinary depth-6 message tree, every leaf batch
      hashed by the Poseidon kernel and both trees built level by level
-     through it, leaves and roots equal to the native library's; (b) the
+     through it, leaves and roots equal to the native library's and every
+     launch's permuted state equal to the plain version's; (b) the
      benchmark's batch, 2^16 width-5 hashes (t = 6), kernel equal to its
      plain version and to the native library, both timed; (c) every width
      t = 2..13 at 1,000 states against the native library; then the same
@@ -162,26 +163,25 @@ def kernel_vs_plain(pk, witness, mul_rate):
             f"window points equal: {got == want}")
         if got != want:
             raise AssertionError(f"{name}: kernel and plain windows differ")
-        # the work these inputs need: one mixed add per entry whose digit
-        # repeats the one before it (and is not 0); per live slot with digit
-        # d, bitlen(d) - 1 doublings, popcount(d) - 1 adds and one add into
-        # the window's sum
+        # the least work these inputs need: one mixed add per entry whose
+        # digit repeats the one before it (and is not 0); per window, with a
+        # running sum (the slots of a digit summed into its bucket, then from
+        # the largest digit D down the running bucket sum added into the
+        # total once a digit): live slots + D - 2 complete adds
         sdig = layout[0]
         mixed = int(((sdig[:, 1:] == sdig[:, :-1]) & (sdig[:, 1:] != 0))
                     .sum())
-        d = cdig[cdig > 0].to(torch.int64)
-        bits = range(spec.c_bits + 1)
-        bitlen = sum(((d >> b) > 0).to(torch.int64) for b in bits)
-        pop = sum((d >> b) & 1 for b in bits)
-        adds = int((bitlen + pop - 1).sum())
+        live = (cdig > 0).sum(1)
+        top = cdig.max(1).values.to(torch.int64)
+        adds = int(torch.where(live > 0, live + top - 2, 0).sum())
         acc_bound = bound(nbytes(*layout, edig, ept),
                           mixed * MIXED_MULS[curve.name], mul_rate)
         wt_bound = bound(nbytes(cdig, cpts, wk),
                          adds * ADD_MULS[curve.name], mul_rate)
         log(f"[bound] {name}: {mixed} mixed adds -> accum bound "
-            f"{acc_bound[0]:.3f} ms ({acc_bound[1]}); {d.numel()} live slots, "
-            f"{adds} complete adds -> weighted bound {wt_bound[0]:.3f} ms "
-            f"({wt_bound[1]})")
+            f"{acc_bound[0]:.3f} ms ({acc_bound[1]}); {int(live.sum())} live "
+            f"slots, {adds} complete adds -> weighted bound "
+            f"{wt_bound[0]:.3f} ms ({wt_bound[1]})")
         rows_out[f"msm_accum_{curve.name}"] = (err, acc_ms, acc_plain_ms,
                                               *acc_bound)
         rows_out[f"msm_weighted_{curve.name}"] = (err, wt_ms, wt_plain_ms,
@@ -204,13 +204,24 @@ def _equal(name: str, got, want) -> None:
         raise AssertionError(f"{name}: kernel result differs from native")
 
 
+def _state_err(got, want) -> int:
+    """Largest absolute difference of the field elements of two Montgomery
+    limb states (..., 16)."""
+    from infimum_tpu_torch.ff.fp import FR_CTX
+
+    return max(abs(a - b) for a, b in zip(FR_CTX.decode(got),
+                                           FR_CTX.decode(want)))
+
+
 def poll_trees(native):
     """Phase 7(a): the largest legal poll's leaves and trees through the
-    kernel, held against the native library. Returns the kernel's launches
-    in this phase."""
+    kernel, held against the native library, and every launch's state held
+    against the plain version. Returns (the kernel's launches in this phase,
+    largest error against plain)."""
     from infimum_tpu_torch import kernels
     from infimum_tpu_torch.ff.bn254 import FR_MOD
-    from infimum_tpu_torch.hash.poseidon import poseidon_batch
+    from infimum_tpu_torch.ff.fp import words_to_limbs
+    from infimum_tpu_torch.hash import poseidon as H
     from infimum_tpu_torch.parallel.tree import tree_root
     from infimum_tpu_torch.tree.zeros import merkle_zeros
 
@@ -221,20 +232,32 @@ def poll_trees(native):
                 for _ in range(MESSAGES)]        # data[0..10], pkx, pky
     zeros2, zeros5 = merkle_zeros(2)[0], merkle_zeros(5)[0]
 
-    kernels.reset_counts()
-    t0 = time.perf_counter()
-    signup_leaves = poseidon_batch([list(c) for c in zip(*signups)])
-    cols = list(zip(*messages))
-    left = poseidon_batch([list(c) for c in cols[:5]])
-    right = poseidon_batch([list(c) for c in cols[5:10]])
-    msg_leaves = poseidon_batch([left, right, list(cols[10]),
-                                 list(cols[11])])
-    t1 = time.perf_counter()
-    reg_root = tree_root(2, 10, [zeros2] + signup_leaves, zero=zeros2)
-    msg_root = tree_root(5, 6, msg_leaves, zero=zeros5)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    launches = kernels.launch_counts()["poseidon_perm"]
+    launched = []          # (input, output) words of each kernel launch
+    real_perm = H.perm_words
+
+    def recording_perm(words):
+        out = real_perm(words)
+        launched.append((words, out))
+        return out
+
+    H.perm_words = recording_perm
+    try:
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        signup_leaves = H.poseidon_batch([list(c) for c in zip(*signups)])
+        cols = list(zip(*messages))
+        left = H.poseidon_batch([list(c) for c in cols[:5]])
+        right = H.poseidon_batch([list(c) for c in cols[5:10]])
+        msg_leaves = H.poseidon_batch([left, right, list(cols[10]),
+                                       list(cols[11])])
+        t1 = time.perf_counter()
+        reg_root = tree_root(2, 10, [zeros2] + signup_leaves, zero=zeros2)
+        msg_root = tree_root(5, 6, msg_leaves, zero=zeros5)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = kernels.launch_counts()["poseidon_perm"]
+    finally:
+        H.perm_words = real_perm
 
     n_signup = native.poseidon_batch(signups, 4)
     n_left = native.poseidon_batch([m[:5] for m in messages], 5)
@@ -257,12 +280,27 @@ def poll_trees(native):
     _equal("message leaves", msg_leaves, n_msg)
     _equal("registration root", reg_root, reg.root)
     _equal("message root", msg_root, msg.root)
+    if len(launched) != launches:
+        raise AssertionError(f"{len(launched)} launches recorded, "
+                             f"{launches} counted")
+    err, shapes = 0, []
+    for words, out in launched:
+        state = words_to_limbs(words.transpose(1, 2))
+        kernel = words_to_limbs(out.transpose(1, 2))
+        plain = H.poseidon_perm_plain(state)
+        if not torch.equal(kernel, plain):
+            raise AssertionError(f"poseidon_perm: kernel and plain differ at "
+                                 f"{tuple(words.shape)}")
+        err = max(err, _state_err(kernel, plain))
+        shapes.append(f"{words.shape[0]}x{words.shape[2]}")
     log(f"[poseidon] poll trees: {SIGNUPS} sign-up + {3 * MESSAGES} message "
         f"hashes {t1 - t0:.3f}s, registration (2, 10) + message (5, 6) trees "
         f"{t2 - t1:.3f}s on the card, {launches} kernel launches; native "
         f"library on the host: hashes {t3 - t2:.3f}s, IMT inserts + merges "
-        f"{t4 - t3:.3f}s; leaves and both roots equal native")
-    return launches
+        f"{t4 - t3:.3f}s; leaves and both roots equal native; every "
+        f"launch's state (t x B: {', '.join(shapes)}) equals the plain "
+        f"version, max abs err {err}")
+    return launches, err
 
 
 def bench_batch(native, mul_rate):
@@ -287,20 +325,26 @@ def bench_batch(native, mul_rate):
     kernel = H.poseidon_perm(state)
     if not torch.equal(kernel, plain):
         raise AssertionError("poseidon_perm: kernel and plain differ")
+    err = _state_err(kernel, plain)
     hashes = FR_CTX.decode(kernel[0])
     _equal("2^16 w5 batch", hashes, native.poseidon_batch(
         [list(r) for r in zip(*cols)], width))
+    # the least work of the permutation: the sparse form of the Poseidon
+    # paper's App. B (circomlib's poseidon.circom), 3 products per S-box;
+    # a full round t S-boxes and a dense t x t MDS product, a partial round
+    # one S-box and a sparse product (first row and first column, 2t - 1);
+    # the dense pre-matrix takes the place of the MDS in the fourth round
     rounds_muls = (FULL_ROUNDS * (3 * t + t * t)
-                   + PARTIAL_ROUNDS[t - 2] * (3 + t * t))
+                   + PARTIAL_ROUNDS[t - 2] * (3 + 2 * t - 1))
     ark, mds = H.tables(t, "cuda", words=True)
     bnd = bound(nbytes(words, out_words, ark, mds), b * rounds_muls,
                 mul_rate)
     log(f"[poseidon] 2^16 w5 batch: kernel {ms:.3f} ms "
         f"({b / ms * 1e3:.1f} hashes/s), plain {plain_ms:.3f} ms, bound "
         f"{bnd[0]:.3f} ms ({bnd[1]}, {rounds_muls} Fr products a hash); "
-        f"kernel == plain on all {b} lanes, == native; card "
-        f"{card_line()}")
-    return (0, ms, plain_ms, *bnd)
+        f"kernel == plain on all {b} lanes (max abs err {err}), == native; "
+        f"card {card_line()}")
+    return (err, ms, plain_ms, *bnd)
 
 
 def width_sweep(native) -> None:
@@ -398,8 +442,9 @@ def main() -> int:
         "infimum_tpu module imported")
 
     # 7. Poseidon: the poll's trees, the benchmark's batch, every width
-    launches["poseidon_perm"] = poll_trees(native)
-    cmp["poseidon_perm"] = bench_batch(native, mul_rate)
+    launches["poseidon_perm"], tree_err = poll_trees(native)
+    err, *rest = bench_batch(native, mul_rate)
+    cmp["poseidon_perm"] = (max(err, tree_err), *rest)
     width_sweep(native)
     if launches["poseidon_perm"] == 0:
         raise AssertionError("poseidon_perm never launched in the trees")
