@@ -11,7 +11,10 @@ Phases, in order; any failure raises and exits nonzero:
      pairing against the poll's own public inputs, outcome option 5;
   4. kernel vs plain: on the first process proof's inputs (the G1 `a` query
      and the G2 `b2` query) each MSM kernel and its plain torch version give
-     the same window points as affine points; both are timed;
+     the same window points as affine points; both are timed; the weighted
+     kernel's grid (at least one block per SM) and the adds its chunks cost
+     beside the bound's, and its time at other chunk sizes; then the median
+     of three steady `prove()` calls of the first process batch;
   5. negative checks: a tampered proof and a wrong public input are
      rejected;
   6. path checks: every MSM kernel was launched in the e2e run, and no
@@ -29,6 +32,12 @@ Phases, in order; any failure raises and exits nonzero:
 The last three lines of standard output are a JSON line with each kernel's
 launches, error, times and bound, then the card's name and power limit;
 the very last line is the result: {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --prove-only
+
+runs phase 1, the e2e of phase 3 and the steady `prove()` timing alone: a
+copy of this file in each of two checkouts of the port compares their
+proving time in one run on one card.
 """
 
 from __future__ import annotations
@@ -181,12 +190,63 @@ def kernel_vs_plain(pk, witness, mul_rate):
         log(f"[bound] {name}: {mixed} mixed adds -> accum bound "
             f"{acc_bound[0]:.3f} ms ({acc_bound[1]}); {int(live.sum())} live "
             f"slots, {adds} complete adds -> weighted bound "
-            f"{wt_bound[0]:.3f} ms ({wt_bound[1]})")
+            f"{wt_bound[0]:.4f} ms ({wt_bound[1]})")
+        weighted_grid(name, spec, cdig, cpts, want, adds, wt_ms)
         rows_out[f"msm_accum_{curve.name}"] = (err, acc_ms, acc_plain_ms,
                                               *acc_bound)
         rows_out[f"msm_weighted_{curve.name}"] = (err, wt_ms, wt_plain_ms,
                                                  *wt_bound)
     return rows_out
+
+
+def weighted_grid(name, spec, cdig, cpts, want, bound_adds, ms) -> None:
+    """The weighted kernel's grid and the adds its chunk walks cost beside
+    the bound's; then its time at other chunk sizes, each held against the
+    window points `want`. Fails when the default chunk gives fewer blocks
+    than the card has SMs."""
+    from infimum_tpu_torch.msm import msm as M
+
+    nwin, K = cdig.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for chunk in sorted({spec.chunk, 4, 8, 16, 32}):
+        t = ms
+        if chunk != spec.chunk:
+            t, out = cuda_ms(lambda: M.weighted_sum(cdig, cpts, spec, chunk),
+                             3)
+            got = M.decode_windows(M.words_to_limbs(out).cpu(), spec.name)
+            if got != want:
+                raise AssertionError(f"{name}: chunk {chunk} windows differ")
+        blocks = M.weighted_blocks(K, chunk) * nwin
+        cost = M.weighted_adds(cdig, spec, chunk)
+        log(f"[weighted] {name} chunk {chunk}"
+            f"{' (default)' if chunk == spec.chunk else ''}: {t:.3f} ms, "
+            f"grid {blocks} blocks of {M.CHUNKS_PER_BLOCK} threads; chunk "
+            f"walks {cost['chunks']} complete adds + {cost['sums']} to sum "
+            f"the chunks = {(cost['chunks'] + cost['sums']) / bound_adds:.2f}"
+            f" x the bound's {bound_adds}")
+        if chunk == spec.chunk and blocks < sms:
+            raise AssertionError(f"{name}: {blocks} blocks on {sms} SMs")
+
+
+def steady_prove(pk, cs, witness, publics) -> float:
+    """Median of three `prove()` calls of one batch by the CUDA-synchronised
+    host clock, in ms; the last proof must verify."""
+    from infimum_tpu_torch.groth16.groth16 import prove, verify
+
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proof = prove(pk, cs, witness, device="cuda")
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    if not verify(pk.vk, proof, publics):
+        raise AssertionError("steady proof rejected")
+    times.sort()
+    log(f"[prove] steady process prove(): median {times[1]:.1f} ms of "
+        f"{', '.join(f'{t:.1f}' for t in times)} (proof verifies); card "
+        f"{card_line()}")
+    return times[1]
 
 
 def _affine_err(p, q) -> int:
@@ -385,12 +445,23 @@ def main() -> int:
     mul_rate = int32_mul_rate()
     log(f"[probe] int32 multiply rate {mul_rate:.4g}/s")
 
+    if sys.argv[1:] == ["--prove-only"]:
+        from infimum_tpu_torch.client.e2e import run_reference_e2e
+
+        run = run_reference_e2e(device="cuda")
+        steady_prove(run.keys.process_pk, run.keys.process_circuit.cs,
+                     run.first_process["witness"],
+                     run.first_process["publics"])
+        return 0
+
     # 2. build
     from infimum_tpu_torch import kernels
 
     kernels.library()
     log(f"[build] {kernels.BUILD_INFO['seconds']:.1f}s -> "
-        f"{kernels.BUILD_INFO['path']}")
+        f"{kernels.BUILD_INFO['path']}; per source: " + ", ".join(
+            f"{src} " + ("cached" if t is None else f"{t:.1f}s")
+            for src, t in kernels.BUILD_INFO["sources"].items()))
     log(kernels.BUILD_INFO["log"].strip())
 
     # 3. e2e at reference dims
@@ -415,6 +486,8 @@ def main() -> int:
     # 4. kernel vs plain on the first process proof's inputs
     first = run.first_process
     cmp = kernel_vs_plain(run.keys.process_pk, first["witness"], mul_rate)
+    steady_prove(run.keys.process_pk, run.keys.process_circuit.cs,
+                 first["witness"], first["publics"])
 
     # 5. negative checks
     from infimum_tpu_torch.curve.bn254_host import G1_GEN, g1_add

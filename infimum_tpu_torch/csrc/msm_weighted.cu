@@ -1,95 +1,199 @@
 // Weighted bucket reduction for the signed-digit Pippenger MSM.
 //
 // Replaces infimum_tpu/msm/pallas_msm.py _make_weighted_kernel, launched by
-// _weighted_call (grid over windows and 1024-entry chunks, tree reduction
-// with 0/1 partner-shift matrices on the MXU).
+// _weighted_call (grid over windows and 1024-entry chunks, a c-bit
+// double-and-add per entry, tree reduction with 0/1 partner-shift matrices
+// on the MXU). None of that carries over.
 //
 // What it computes: for each window, sum over its compacted emissions e of
 // d_e * P_e, which equals sum_d d * B_d (the weights are the bucket
-// indices). Entries with digit 0 are padding and skipped.
+// indices). Compaction (msm.py `compact`) lists each window's live entries
+// first and in non-decreasing digit order, then zero padding (digit 0).
 //
-// Design: one block per window. Each thread walks a strided slice of the
-// window's entries, computes d * P by double-and-add from the top set bit
-// with the complete add (RCB Alg. 7, which also doubles), and sums into its
-// own accumulator; the block then tree-reduces the per-thread sums in shared
-// memory, limb-major ([word][thread]) so a warp touches 32 banks. Any
-// reduction order gives the same window point, which is all that is used.
+// Design, two launches:
+//  1. `msm_weighted_chunks`: one thread per chunk of `chunk` consecutive
+//     slots, 32 chunks (one warp) per block, a grid of (blocks per window,
+//     windows). A thread walks its chunk's live entries from the top digit
+//     down with a running sum: S += P_e at every entry, A += (d_above - d_e)
+//     * S at every step, and A += d_first * S below the last entry, so
+//     A = sum d_e P_e with one add per entry, one per change of digit and a
+//     multiple of S by the chunk's smallest digit (2-bit windows). The warp
+//     then sums its 32 chunk values with shuffles, and lane 0 writes the
+//     block's partial.
+//  2. `msm_weighted_combine`: one warp per window sums its blocks' partials.
+// Any order of adds gives the same window point; only the affine point is
+// used. A block whose first slot is padding holds no live entry and writes
+// infinity at once.
 //
-// What bounds it: integer multiply throughput, on few SMs. 20 (G1) or 26
-// (G2) blocks leave most of the 132 SMs idle: splitting each window across
-// blocks with a second pass is the first thing a performance change should
-// do here. `nvcc --resource-usage` for sm_90a, CUDA 12.8: the G1 instance
-// uses 128 registers and a 504-byte stack frame (the out-of-line add's
-// arguments), 24 bytes of spills; the G2 instance uses 255 registers and a
-// 1072-byte stack frame, 64 bytes of spill stores and 136 of spill loads.
+// What bounds it: the latency of a thread's chain of complete adds, each a
+// few Montgomery products whose carry chains run one instruction after
+// another, at a few warps an SM; then the multiply pipe once the warps are
+// many. A warp runs its lanes' gaps and multiples in lockstep. The chunk
+// size trades threads (more warps an SM) against the per-chunk multiple by
+// the smallest digit; the wrapper's default per curve (msm.py
+// `CurveSpec.chunk`) gives at least 132 blocks at the main path's shapes.
+// The complete add stays one out-of-line function: inlined at its call
+// sites, the G2 instance made nvcc crash (segmentation fault) on sm_90a.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
 
 namespace inf {
 
-// One out-of-line copy of the complete add: inlined at its three call sites
-// the G2 instance made nvcc crash (segmentation fault) on sm_90a.
+constexpr int WARP = 32;
+
 template <class F>
 __device__ __noinline__ Proj<F> add(const Proj<F>& p, const Proj<F>& q) {
   return rcb_add<F>(p, q);
 }
 
-template <class F, int BLOCK>
-__global__ void __launch_bounds__(BLOCK)
-msm_weighted_kernel(const int32_t* __restrict__ cdig,
-                    const uint32_t* __restrict__ cpts,
-                    uint32_t* __restrict__ out, int K) {
-  constexpr int PW = 3 * F::WORDS;
-  extern __shared__ uint32_t sh[];  // PW * BLOCK words
-  const int tid = threadIdx.x;
-  const int32_t* dig = cdig + (size_t)blockIdx.x * K;
-  const uint32_t* pts = cpts + (size_t)blockIdx.x * PW * K;
-
-  Proj<F> acc = proj_infinity<F>();
-  for (int k = tid; k < K; k += BLOCK) {
-    const int32_t d = dig[k];
-    if (d == 0) continue;
-    const Proj<F> pt = load_proj<F>(pts + k, K);
-    Proj<F> part = pt;
-    for (int b = 30 - __clz(d); b >= 0; --b) {
-      part = add<F>(part, part);
-      if ((d >> b) & 1) part = add<F>(part, pt);
-    }
-    acc = add<F>(acc, part);
-  }
-  store_proj<F>(sh + tid, BLOCK, acc);
-  __syncthreads();
-  for (int s = BLOCK / 2; s > 0; s >>= 1) {
-    if (tid < s) {
-      const Proj<F> a = load_proj<F>(sh + tid, BLOCK);
-      const Proj<F> b = load_proj<F>(sh + tid + s, BLOCK);
-      store_proj<F>(sh + tid, BLOCK, add<F>(a, b));
-    }
-    __syncthreads();
-  }
-  if (tid < PW) out[(size_t)blockIdx.x * PW + tid] = sh[tid * BLOCK];
+// Fq2 with its product out of line. With the product inlined at its 12
+// sites, the G2 complete add holds 255 registers, spills, and one thread's
+// chain of adds ran at twice the latency on an H100.
+__device__ __noinline__ Fq2::E fq2_mul(const Fq2::E& a, const Fq2::E& b) {
+  return Fq2::mul(a, b);
 }
 
-template <class F, int BLOCK>
-int launch_weighted(const void* cdig, const void* cpts, void* out, int nwin,
-                    int K, void* stream) {
-  const size_t shmem = (size_t)3 * F::WORDS * BLOCK * sizeof(uint32_t);
-  msm_weighted_kernel<F, BLOCK><<<nwin, BLOCK, shmem, (cudaStream_t)stream>>>(
-      (const int32_t*)cdig, (const uint32_t*)cpts, (uint32_t*)out, K);
+struct Fq2OutOfLine : Fq2 {
+  static __device__ __forceinline__ E mul(const E& a, const E& b) {
+    return fq2_mul(a, b);
+  }
+};
+
+// a + g * s for g >= 0, by double-and-add from g's top bit: the gaps of the
+// walk, mostly 1
+template <class F>
+__device__ Proj<F> add_multiple(const Proj<F>& a, const Proj<F>& s, int g) {
+  if (g == 0) return a;
+  Proj<F> t = s;
+  for (int b = 30 - __clz(g); b >= 0; --b) {
+    t = add<F>(t, t);
+    if ((g >> b) & 1) t = add<F>(t, s);
+  }
+  return add<F>(a, t);
+}
+
+template <class F>
+__device__ __forceinline__ Proj<F> pick(int k, const Proj<F>& s1,
+                                        const Proj<F>& s2, const Proj<F>& s3) {
+  return k == 1 ? s1 : (k == 2 ? s2 : s3);
+}
+
+// a + g * s for g > 0 in 2-bit windows from the top, with s, 2s and 3s: the
+// chunk's smallest digit, 10-13 bits. A warp runs its lanes' windows in
+// lockstep, so this costs 2 + 3 adds a window where binary costs up to 4.
+template <class F>
+__device__ Proj<F> add_multiple_w2(const Proj<F>& a, const Proj<F>& s, int g) {
+  const Proj<F> s2 = add<F>(s, s);
+  const Proj<F> s3 = add<F>(s2, s);
+  int i = (31 - __clz(g)) >> 1;
+  Proj<F> t = pick<F>((g >> 2 * i) & 3, s, s2, s3);
+  for (--i; i >= 0; --i) {
+    t = add<F>(t, t);
+    t = add<F>(t, t);
+    const int k = (g >> 2 * i) & 3;
+    if (k) t = add<F>(t, pick<F>(k, s, s2, s3));
+  }
+  return add<F>(a, t);
+}
+
+template <class F>
+__device__ __forceinline__ Proj<F> shfl_down(const Proj<F>& p, int off) {
+  Proj<F> r;
+  const uint32_t* s = reinterpret_cast<const uint32_t*>(&p);
+  uint32_t* d = reinterpret_cast<uint32_t*>(&r);
+#pragma unroll
+  for (int i = 0; i < 3 * F::WORDS; ++i)
+    d[i] = __shfl_down_sync(0xffffffffu, s[i], off);
+  return r;
+}
+
+// sum over the warp's lanes, in lane 0; every lane must take part
+template <class F>
+__device__ Proj<F> warp_sum(Proj<F> v) {
+  for (int off = WARP / 2; off > 0; off >>= 1)
+    v = add<F>(v, shfl_down<F>(v, off));
+  return v;
+}
+
+template <class F>
+__global__ void __launch_bounds__(WARP)
+msm_weighted_chunks(const int32_t* __restrict__ cdig,
+                    const uint32_t* __restrict__ cpts,
+                    uint32_t* __restrict__ partial, int K, int chunk) {
+  constexpr int PW = 3 * F::WORDS;
+  const int win = blockIdx.y, lane = threadIdx.x;
+  const int32_t* dig = cdig + (size_t)win * K;
+  const uint32_t* pts = cpts + (size_t)win * PW * K;
+  uint32_t* part = partial + ((size_t)win * gridDim.x + blockIdx.x) * PW;
+  const int first = blockIdx.x * WARP * chunk;
+  if (dig[first] == 0) {  // warp-uniform: the live entries lie below
+    if (lane == 0) store_proj<F>(part, 1, proj_infinity<F>());
+    return;
+  }
+
+  Proj<F> acc = proj_infinity<F>();
+  const int lo = first + lane * chunk;
+  const int hi = min(lo + chunk, K);
+  if (lo < hi && dig[lo] != 0) {
+    int top = lo;
+    while (top + 1 < hi && dig[top + 1] != 0) ++top;
+    Proj<F> s = load_proj<F>(pts + top, K);
+    int above = dig[top];
+    for (int k = top - 1; k >= lo; --k) {
+      const int d = dig[k];
+      acc = add_multiple<F>(acc, s, above - d);
+      s = add<F>(s, load_proj<F>(pts + k, K));
+      above = d;
+    }
+    acc = add_multiple_w2<F>(acc, s, above);
+  }
+  acc = warp_sum<F>(acc);
+  if (lane == 0) store_proj<F>(part, 1, acc);
+}
+
+template <class F>
+__global__ void __launch_bounds__(WARP)
+msm_weighted_combine(const uint32_t* __restrict__ partial,
+                     uint32_t* __restrict__ out, int nblk) {
+  constexpr int PW = 3 * F::WORDS;
+  const uint32_t* part = partial + (size_t)blockIdx.x * nblk * PW;
+  Proj<F> acc = threadIdx.x < nblk ? load_proj<F>(part + threadIdx.x * PW, 1)
+                                   : proj_infinity<F>();
+  for (int b = threadIdx.x + WARP; b < nblk; b += WARP)
+    acc = add<F>(acc, load_proj<F>(part + (size_t)b * PW, 1));
+  acc = warp_sum<F>(acc);
+  if (threadIdx.x == 0) store_proj<F>(out + (size_t)blockIdx.x * PW, 1, acc);
+}
+
+template <class F>
+int launch_weighted(const void* cdig, const void* cpts, void* partial,
+                    void* out, int nwin, int K, int chunk, void* stream) {
+  const int nblk = (K + WARP * chunk - 1) / (WARP * chunk);
+  msm_weighted_chunks<F><<<dim3(nblk, nwin), WARP, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)cdig, (const uint32_t*)cpts, (uint32_t*)partial, K,
+      chunk);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  msm_weighted_combine<F><<<nwin, WARP, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)partial, (uint32_t*)out, nblk);
   return (int)cudaGetLastError();
 }
 
 }  // namespace inf
 
-// cdig: (nwin, K) int32; cpts: (nwin, 3W, K) words; out: (nwin, 3W) words.
+// cdig: (nwin, K) int32; cpts: (nwin, 3W, K) words; partial: scratch of
+// (nwin, ceil(K / (32 * chunk)), 3W) words; out: (nwin, 3W) words.
 extern "C" int inf_msm_weighted_g1(const void* cdig, const void* cpts,
-                                   void* out, int nwin, int K, void* stream) {
-  return inf::launch_weighted<inf::Fq, 256>(cdig, cpts, out, nwin, K, stream);
+                                   void* partial, void* out, int nwin, int K,
+                                   int chunk, void* stream) {
+  return inf::launch_weighted<inf::Fq>(cdig, cpts, partial, out, nwin, K,
+                                       chunk, stream);
 }
 
 extern "C" int inf_msm_weighted_g2(const void* cdig, const void* cpts,
-                                   void* out, int nwin, int K, void* stream) {
-  return inf::launch_weighted<inf::Fq2, 128>(cdig, cpts, out, nwin, K,
-                                             stream);
+                                   void* partial, void* out, int nwin, int K,
+                                   int chunk, void* stream) {
+  return inf::launch_weighted<inf::Fq2OutOfLine>(cdig, cpts, partial, out,
+                                                nwin, K, chunk, stream);
 }

@@ -2,8 +2,10 @@
 
 The sources in `csrc/` are compiled by `nvcc` for `sm_90a` into one shared
 library with a plain C interface, at first use, into `build/` (kept out of
-git), under a name keyed on a hash of the sources: an edited source gets a
-fresh build, an unchanged one is loaded as it is. The library is bound with
+git). Each `.cu` becomes an object keyed on a hash of its source, the local
+headers it includes and the flags; the library is linked from the objects
+and keyed on their keys. So an edited source rebuilds its own object only,
+and an unchanged library is loaded as it is. The library is bound with
 `ctypes`: pointers and the stream go as `c_void_p`, sizes as `c_int`. Each
 C entry point launches on the stream it is given and returns
 `cudaGetLastError()`, and the wrapper raises when that is not 0.
@@ -16,10 +18,12 @@ imported or built unless a CUDA tensor reaches a kernel wrapper.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -28,7 +32,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
-SOURCES = ("field.cuh", "msm_accum.cu", "msm_weighted.cu", "poseidon_perm.cu")
+SOURCES = ("msm_accum.cu", "msm_weighted.cu", "poseidon_perm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "--resource-usage")
 
@@ -57,13 +61,14 @@ class Kernel:
 KERNELS = {
     "msm_accum_g1": Kernel("inf_msm_accum_g1", 5, 3),
     "msm_accum_g2": Kernel("inf_msm_accum_g2", 5, 3),
-    "msm_weighted_g1": Kernel("inf_msm_weighted_g1", 3, 2),
-    "msm_weighted_g2": Kernel("inf_msm_weighted_g2", 3, 2),
+    "msm_weighted_g1": Kernel("inf_msm_weighted_g1", 4, 3),
+    "msm_weighted_g2": Kernel("inf_msm_weighted_g2", 4, 3),
     "poseidon_perm": Kernel("inf_poseidon_perm", 4, 3),
 }
 
-# the last build of this process: {"seconds", "path", "log"} (log holds
-# nvcc's --resource-usage report: registers, spills, shared memory)
+# the last build of this process: {"seconds", "path", "log", "sources"}
+# (log holds nvcc's --resource-usage report: registers, spills, shared
+# memory; sources maps each .cu to its compile seconds, None when cached)
 BUILD_INFO: dict = {}
 _lib = None
 
@@ -77,12 +82,18 @@ def launch_counts() -> dict:
     return {name: k.launches for name, k in KERNELS.items()}
 
 
-def _source_hash() -> str:
-    h = hashlib.sha256()
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+def _object_key(src: str) -> str:
+    """Hash of a source, the local headers it includes and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    todo, seen = [src], set()
+    while todo:
+        name = todo.pop()
+        if name in seen:
+            continue
+        seen.add(name)
+        text = (CSRC / name).read_bytes()
+        h.update(name.encode() + b"\0" + text)
+        todo += re.findall(r'#include "([^"]+)"', text.decode())
     return h.hexdigest()[:16]
 
 
@@ -95,43 +106,48 @@ def _nvcc() -> str:
                        "are built from csrc/ at first use")
 
 
-def _run(cmds):
-    """Run the commands in parallel; raise with the output of a failure."""
-    procs = [(c, subprocess.Popen(c, stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True))
-             for c in cmds]
-    logs = []
-    for cmd, proc in procs:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"{' '.join(cmd)} failed ({proc.returncode})"
-                               f":\n{out}")
-        logs.append(out)
-    return "".join(logs)
+def _compile(cmd) -> tuple[float, str]:
+    """Run one nvcc command; (seconds, output), raising on a failure."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd)} failed ({proc.returncode}):\n"
+                           f"{proc.stdout}")
+    return time.perf_counter() - t0, proc.stdout
 
 
 def build() -> pathlib.Path:
-    """Compile csrc/ into build/ unless this source hash is built already:
-    each .cu to an object in parallel, then one shared library."""
-    tag = _source_hash()
+    """Compile csrc/ into build/: each .cu whose object is not built yet,
+    all in parallel, then the library from the objects unless it exists."""
+    keys = {src: _object_key(src) for src in SOURCES}
+    tag = hashlib.sha256("".join(keys.values()).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"libinfimum_torch_{tag}.so"
     if out.exists():
-        BUILD_INFO.update(seconds=0.0, path=str(out), log="(cached)")
+        BUILD_INFO.update(seconds=0.0, path=str(out), log="(cached)",
+                          sources=dict.fromkeys(SOURCES))
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    objs, cmds = [], []
-    for src in (s for s in SOURCES if s.endswith(".cu")):
-        obj = BUILD_DIR / f"{src[:-3]}_{tag}.{os.getpid()}.o"
-        objs.append(str(obj))
-        cmds.append([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)])
-    log = _run(cmds)
+    objs = {src: BUILD_DIR / f"{src[:-3]}_{key}.o" for src, key in keys.items()}
+    todo = [src for src, obj in objs.items() if not obj.exists()]
+    tmps = {src: objs[src].with_suffix(f".{os.getpid()}.tmp.o") for src in todo}
+    with concurrent.futures.ThreadPoolExecutor(max(1, len(todo))) as pool:
+        done = dict(zip(todo, pool.map(_compile, (
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(tmps[src]), str(CSRC / src)]
+            for src in todo))))
+    for src in todo:
+        os.replace(tmps[src], objs[src])
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    log += _run([[nvcc, "-shared", "-o", str(tmp), *objs]])
+    _, link_log = _compile([nvcc, "-shared", "-o", str(tmp),
+                            *map(str, objs.values())])
     os.replace(tmp, out)
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(out),
-                      log=log)
+    BUILD_INFO.update(
+        seconds=time.perf_counter() - t0, path=str(out),
+        log="".join(log for _, log in done.values()) + link_log,
+        sources={src: done[src][0] if src in done else None
+                 for src in SOURCES})
     return out
 
 

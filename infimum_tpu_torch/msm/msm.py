@@ -9,9 +9,11 @@ all windows batched into one launch of each kernel:
      range [l*T, (l+1)*T).
   2. kernel `msm_accum` (csrc/msm_accum.cu): run-emission accumulation.
   3. torch: compaction. The sorted order bounds the live emissions per
-     window by n_buckets + L + 2, so a flag / cumsum / scatter packs them.
+     window by n_buckets + L + 2, so a flag / cumsum / scatter packs them,
+     lane by lane: each window's list is then non-decreasing in digit.
   4. kernel `msm_weighted` (csrc/msm_weighted.cu): sum of digit * point
-     over each window's emissions.
+     over each window's emissions, by running sums over chunks of the
+     sorted list.
 
 The window sums combine on the host (Horner, c doublings per window).
 Inside the pipeline a field element is 8 32-bit words (int32 tensors,
@@ -43,10 +45,11 @@ LANES_MAX = {"g1": 4096, "g2": 2048}
 class CurveSpec:
     """Static parameters binding the pipeline to G1 or G2."""
 
-    def __init__(self, name: str, c_bits: int):
+    def __init__(self, name: str, c_bits: int, chunk: int):
         self.name = name
         self.curve = CURVES[name]
         self.c_bits = c_bits
+        self.chunk = chunk          # slots a thread of the weighted kernel walks
         self.n_buckets = 1 << (c_bits - 1)
         self.n_windows = -(-254 // c_bits)
         self.RF = NLIMBS * (2 if name == "g2" else 1)  # 16-bit limbs per coord
@@ -54,8 +57,8 @@ class CurveSpec:
         self.AW, self.PW = self.AF // 2, self.PR // 2    # 32-bit words
 
 
-G1_SPEC = CurveSpec("g1", 13)     # 20 windows
-G2_SPEC = CurveSpec("g2", 10)     # 26 windows
+G1_SPEC = CurveSpec("g1", 13, 8)      # 20 windows
+G2_SPEC = CurveSpec("g2", 10, 4)      # 26 windows
 SPECS = {"g1": G1_SPEC, "g2": G2_SPEC}
 
 
@@ -168,14 +171,18 @@ def accumulate_plain(sdig, ssgn, spts, spec: CurveSpec):
 
 def compact(edig, ept, K: int):
     """Pack each window's live emissions (digit > 0) into K slots:
-    (nwin, K) int32 digits and (nwin, PW, K) int32 words, zero-padded."""
+    (nwin, K) int32 digits and (nwin, PW, K) int32 words, zero-padded.
+
+    The emissions are taken lane by lane: lane l holds the sorted range
+    [l*T, (l+1)*T) and emits its runs in rising digit order, so each
+    window's packed digits are non-decreasing."""
     nwin, T1, PW, L = ept.shape
-    flat = edig.reshape(nwin, T1 * L)
+    flat = edig.transpose(1, 2).reshape(nwin, L * T1)
     flags = flat > 0
     dest = torch.where(flags, flags.cumsum(1) - 1, K)   # slot K: dropped
     cdig = torch.zeros((nwin, K + 1), dtype=torch.int32, device=edig.device)
     cdig.scatter_(1, dest, flat)
-    rows = ept.transpose(1, 2).reshape(nwin, PW, T1 * L)
+    rows = ept.permute(0, 2, 3, 1).reshape(nwin, PW, L * T1)
     cpts = torch.zeros((nwin, PW, K + 1), dtype=torch.int32,
                        device=edig.device)
     cpts.scatter_(2, dest.unsqueeze(1).expand(-1, PW, -1), rows)
@@ -184,38 +191,100 @@ def compact(edig, ept, K: int):
 
 # -- kernel 2: weighted bucket reduction ----------------------------------------------
 
-def weighted_sum(cdig, cpts, spec: CurveSpec):
-    """cdig (nwin, K) int32, cpts (nwin, PW, K) int32 words -> (nwin, PW)
-    int32 words: per window the projective sum of digit * point."""
+CHUNKS_PER_BLOCK = 32       # one warp: a thread per chunk
+
+
+def weighted_blocks(K: int, chunk: int) -> int:
+    """Blocks per window of the weighted kernel's first launch."""
+    return -(-K // (CHUNKS_PER_BLOCK * chunk))
+
+
+def weighted_sum(cdig, cpts, spec: CurveSpec, chunk: int | None = None):
+    """cdig (nwin, K) int32, non-decreasing live digits then zeros; cpts
+    (nwin, PW, K) int32 words -> (nwin, PW) int32 words: per window the
+    projective sum of digit * point. `chunk`: slots a thread walks
+    (default `spec.chunk`)."""
+    chunk = chunk or spec.chunk
     if cpts.device.type == "cuda":
         nwin, K = cdig.shape
         _check(cdig, (nwin, K), "cdig")
         _check(cpts, (nwin, spec.PW, K), "cpts")
+        partial = torch.empty((nwin, weighted_blocks(K, chunk), spec.PW),
+                              dtype=torch.int32, device=cpts.device)
         out = torch.empty((nwin, spec.PW), dtype=torch.int32,
                           device=cpts.device)
-        kernels.KERNELS[f"msm_weighted_{spec.name}"](cdig, cpts, out, nwin, K)
+        kernels.KERNELS[f"msm_weighted_{spec.name}"](
+            cdig, cpts, partial, out, nwin, K, chunk)
         return out
     if cpts.device.type != "cpu":
         raise ValueError(f"no msm_weighted kernel for {cpts.device}")
-    return weighted_sum_plain(cdig, cpts, spec)
+    return weighted_sum_plain(cdig, cpts, spec, chunk)
 
 
-def weighted_sum_plain(cdig, cpts, spec: CurveSpec):
-    """Plain torch version of the weighted kernel: c-bit double-and-add of
-    every live entry, then a halving tree over the entries. Compaction puts
-    the live entries first, so only the longest live prefix is computed."""
+def _chunk_digits(cdig, chunk: int):
+    """The live prefix of each window's digits cut into chunks of `chunk`
+    slots: (nwin, nc, chunk) int64, zero-padded; None when no slot is
+    live."""
+    nwin, K = cdig.shape
+    live = int((cdig != 0).sum(1).max())
+    if live == 0:
+        return None
+    n = -(-live // chunk) * chunk
+    d = tnf.pad(cdig[:, :n], (0, n - min(n, K)))
+    return d.reshape(nwin, -1, chunk).to(torch.int64)
+
+
+def _chunk_points(cpts, spec: CurveSpec, nc: int, chunk: int):
+    """The points of the first nc chunks: a tuple of 3 (nwin, nc, chunk,
+    field shape)."""
+    nwin, _, K = cpts.shape
+    n = nc * chunk
+    words = tnf.pad(cpts[:, :, :n], (0, n - min(n, K)))
+    words = words.reshape(nwin, spec.PW, nc, chunk).permute(0, 2, 3, 1)
+    return _words_point(words, spec, 3)
+
+
+def _add_multiple(curve, a, s, g):
+    """a + g * s elementwise for int64 g >= 0, by double-and-add."""
+    nb = int(g.max()).bit_length()
+    if nb == 0:
+        return a
+    inf = curve.infinity(g.shape, g.device)
+    t = curve.select(((g >> (nb - 1)) & 1) == 1, s, inf)
+    for b in range(nb - 2, -1, -1):
+        t = curve.add(t, t)
+        t = curve.select(((g >> b) & 1) == 1, curve.add(t, s), t)
+    return curve.add(a, t)
+
+
+def weighted_sum_plain(cdig, cpts, spec: CurveSpec, chunk: int | None = None):
+    """Plain torch version of the weighted kernel, the same algorithm: each
+    chunk of `chunk` slots walked from its top entry down with a running
+    sum (S += P_e, A += (d_above - d_e) * S, then A += d_first * S), then
+    a halving tree over the chunk values. Compaction puts the live entries
+    first, so only the chunks of the longest live prefix are computed."""
+    chunk = chunk or spec.chunk
     curve = spec.curve
     nwin = cdig.shape[0]
     dev = cdig.device
-    k = int((cdig != 0).sum(1).max())
-    if k == 0:
+    d = _chunk_digits(cdig, chunk)
+    if d is None:
         return _point_words(curve.infinity((nwin,), dev), spec)
-    d = cdig[:, :k].to(torch.int64)
-    pt = _words_point(cpts[:, :, :k].transpose(1, 2), spec, 3)
-    part = curve.infinity((nwin, k), dev)
-    for b in range(spec.c_bits - 1, -1, -1):
-        part = curve.add(part, part)
-        part = curve.select(((d >> b) & 1) == 1, curve.add(part, pt), part)
+    nc = d.shape[1]
+    pts = _chunk_points(cpts, spec, nc, chunk)
+    acc = curve.infinity((nwin, nc), dev)
+    s = curve.infinity((nwin, nc), dev)
+    above = torch.zeros((nwin, nc), dtype=torch.int64, device=dev)
+    for j in range(chunk - 1, -1, -1):
+        dj = d[..., j]
+        lv = dj > 0
+        if not bool(lv.any()):
+            continue
+        acc = _add_multiple(curve, acc, s,
+                            torch.where(lv & (above > 0), above - dj, 0))
+        s = curve.select(lv, curve.add(s, tuple(c[:, :, j] for c in pts)), s)
+        above = torch.where(lv, dj, above)
+    part = _add_multiple(curve, acc, s, above)
     while part[0].shape[1] > 1:
         n = part[0].shape[1]
         if n % 2:
@@ -225,6 +294,41 @@ def weighted_sum_plain(cdig, cpts, spec: CurveSpec):
         part = curve.add(tuple(c[:, :n // 2] for c in part),
                          tuple(c[:, n // 2:] for c in part))
     return _point_words(tuple(c[:, 0] for c in part), spec)
+
+
+def weighted_adds(cdig, spec: CurveSpec, chunk: int | None = None) -> dict:
+    """The complete adds the weighted kernel's chunk walks do on `cdig`
+    ("chunks"), counting each lane alone, and the adds that sum the live
+    chunks' values per window ("sums"). A gap g of the walk costs
+    bitlen(g) + popcount(g) - 1 adds (double-and-add); the multiple by the
+    chunk's smallest digit, in 2-bit windows, 2 for the table, 2 per window
+    below the top one and 1 per nonzero one, and 1 to add it in."""
+    chunk = chunk or spec.chunk
+    d = _chunk_digits(cdig, chunk)
+    if d is None:
+        return {"chunks": 0, "sums": 0}
+    lv = d > 0
+    gaps = torch.where(lv[..., 1:], d[..., 1:] - d[..., :-1], 0)
+    first = d[..., 0]
+    bits = torch.zeros_like(gaps)
+    ones = torch.zeros_like(gaps)
+    for b in range(spec.c_bits + 1):
+        bit = (gaps >> b) & 1
+        ones += bit
+        bits = torch.where(bit == 1, b + 1, bits)
+    walk = torch.where(gaps > 0, bits + ones - 1, 0)
+    top = torch.zeros_like(first)             # index of the top 2-bit window
+    nonzero = torch.zeros_like(first)         # nonzero windows, top included
+    for i in range(spec.c_bits // 2 + 1):
+        win = (first >> (2 * i)) & 3
+        nonzero += (win > 0).to(first.dtype)
+        top = torch.where(win > 0, i, top)
+    final = torch.where(first > 0, 2 + 2 * top + nonzero, 0)
+    n_live = lv.sum(-1)
+    live_chunks = (n_live > 0).sum(-1)
+    return {"chunks": int((n_live - 1).clamp(min=0).sum() + walk.sum()
+                          + final.sum()),
+            "sums": int((live_chunks - 1).clamp(min=0).sum())}
 
 
 # -- orchestration ------------------------------------------------------------------

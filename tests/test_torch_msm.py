@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from infimum_tpu.curve.bn254_host import (
-    B2, G1_GEN, G2_GEN, g1_add, g1_mul, g2_add, g2_mul, msm_host_fast,
+    B2, G1_GEN, G2_GEN, g1_add, g1_mul, g1_neg, g2_add, g2_mul, g2_neg,
+    msm_host_fast,
 )
 from infimum_tpu.ff.bn254 import FQ_MOD, FR_MOD
 from infimum_tpu_torch.msm import msm as M
@@ -23,6 +24,7 @@ from infimum_tpu_torch.msm import msm as M
 torch.set_num_threads(1)  # the suite runs in parallel worker processes
 
 CURVES = {"g1": (G1_GEN, g1_mul, g1_add), "g2": (G2_GEN, g2_mul, g2_add)}
+NEG = {"g1": g1_neg, "g2": g2_neg}
 
 
 def _ints(seed, n, bits=254, mod=FR_MOD):
@@ -137,8 +139,9 @@ def test_window_sums_match_host(curve):
 
 @pytest.mark.parametrize("curve", ["g1", "g2"])
 def test_emissions_compact_within_bound(curve):
-    """Every live emission fits the K = n_buckets + L + 2 slots, and the
-    compacted digits are exactly the nonzero emitted digits per window."""
+    """Every live emission fits the K = n_buckets + L + 2 slots, and each
+    window's compacted digits, taken lane by lane, are non-decreasing and
+    the same multiset as its nonzero emitted digits, then zero padding."""
     spec = M.SPECS[curve]
     n, lanes = 64, 8
     rows, sc = M.encode_inputs(_points(curve, 31, n), _ints(32, n), lanes,
@@ -151,8 +154,123 @@ def test_emissions_compact_within_bound(curve):
     cdig, cpts = M.compact(edig, ept, K)
     for w in range(nwin):
         live = edig[w][edig[w] > 0]
-        assert torch.equal(cdig[w, :live.numel()], live.flatten())
+        got = cdig[w, :live.numel()]
+        assert (got > 0).all()
+        assert (got[1:] >= got[:-1]).all()
+        assert torch.equal(got.sort().values, live.sort().values)
         assert not cdig[w, live.numel():].any()
+
+
+def _window_inputs(curve, windows, K):
+    """Windows of (digit, host point) lists, digits non-decreasing -> the
+    weighted kernel's (cdig, cpts) as compaction lays them out."""
+    spec = M.SPECS[curve]
+    cdig = torch.zeros((len(windows), K), dtype=torch.int32)
+    cpts = torch.zeros((len(windows), spec.PW, K), dtype=torch.int32)
+    for w, entries in enumerate(windows):
+        if not entries:
+            continue
+        digits = [d for d, _ in entries]
+        assert digits == sorted(digits) and len(digits) <= K
+        aff = spec.curve.encode_affine([p for _, p in entries])
+        one = spec.curve.one((len(entries),), "cpu")
+        cdig[w, :len(entries)] = torch.tensor(digits, dtype=torch.int32)
+        cpts[w, :, :len(entries)] = M._point_words(
+            (aff[:, 0], aff[:, 1], one), spec).T
+    return cdig, cpts
+
+
+def _weighted_cases(curve, case):
+    """The windows of one edge case of the chunked running sum."""
+    spec = M.SPECS[curve]
+    C, nb = spec.chunk, spec.n_buckets
+    pts = _points(curve, 51, 2 * C + 5)
+    p, q = pts[0], pts[1]
+    if case == "empty":
+        return [[]]
+    if case == "one_entry":
+        return [[(5, p)]]
+    if case == "same_digit":
+        return [[(9, x) for x in pts[:2 * C + 1]]]
+    if case == "largest_gap":
+        return [[(1, p), (1, q), (nb, pts[2]), (nb, pts[3])], [(1, p), (nb, q)]]
+    if case == "run_across_chunks":
+        digits = [1] * (C - 2) + [7] * 4 + [8] * (C - 2)
+        return [list(zip(digits, pts))]
+    if case == "cancel":
+        negp = NEG[curve](p)
+        return [[(3, p), (3, negp)], [(2, q), (3, p), (3, negp), (4, q)]]
+    if case == "double":
+        return [[(5, p), (5, p)], [(4, p), (6, p)]]
+    if case == "ragged":
+        digits = sorted(int(d) for d in np.random.default_rng(52).integers(
+            1, nb + 1, size=2 * C + 5))
+        return [list(zip(digits, pts))]
+    raise ValueError(case)
+
+
+WEIGHTED_CASES = ["empty", "one_entry", "same_digit", "largest_gap",
+                  "run_across_chunks", "cancel", "double", "ragged"]
+
+
+@pytest.mark.parametrize("case", WEIGHTED_CASES)
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_weighted_chunks_match_host(curve, case):
+    """The chunked running sum (the kernel's plain version) against a host
+    sum of digit * point per window, at the edges of its algorithm."""
+    spec = M.SPECS[curve]
+    _, mul, add = CURVES[curve]
+    windows = _weighted_cases(curve, case)
+    K = 3 * spec.chunk + 7          # not a multiple of the chunk
+    cdig, cpts = _window_inputs(curve, windows, K)
+    got = M.decode_windows(M.words_to_limbs(
+        M.weighted_sum_plain(cdig, cpts, spec)), curve)
+    for w, entries in enumerate(windows):
+        want = None
+        for d, p in entries:
+            want = add(want, mul(p, d))
+        assert got[w] == want, w
+    if case in ("cancel", "empty"):
+        assert got[0] is None
+
+
+def test_weighted_grid_fills_card():
+    """At the main path's shapes (the reference process key's `a` query:
+    4,096 lanes, G1; `b2`: 2,048 lanes, G2) the kernel's first launch has
+    at least one block per SM of an H100 (132)."""
+    for curve, lanes in (("g1", 4096), ("g2", 2048)):
+        spec = M.SPECS[curve]
+        K = spec.n_buckets + lanes + 2
+        assert M.weighted_blocks(K, spec.chunk) * spec.n_windows >= 132
+
+
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_weighted_adds_count(curve):
+    """`weighted_adds` counts the chunk walks' adds as a walk over the
+    digits does, and the sums of the live chunks' values."""
+    spec = M.SPECS[curve]
+    C = spec.chunk
+    digits = sorted(int(d) for d in np.random.default_rng(53).integers(
+        1, spec.n_buckets + 1, size=3 * C + 2))
+    cdig = torch.zeros((2, 5 * C), dtype=torch.int32)
+    cdig[0, :len(digits)] = torch.tensor(digits, dtype=torch.int32)
+    cdig[1, :C] = 3
+
+    def cost(g):
+        return g.bit_length() + bin(g).count("1") - 1 if g else 0
+
+    def cost_w2(g):
+        wins = [(g >> (2 * i)) & 3 for i in range((g.bit_length() + 1) // 2)]
+        return 2 + 2 * (len(wins) - 1) + sum(w > 0 for w in wins[:-1]) + 1
+
+    want = 0
+    for row in cdig.tolist():
+        for c in range(0, len(row), C):
+            live = [d for d in row[c:c + C] if d]
+            if live:
+                want += len(live) - 1 + cost_w2(live[0]) + sum(
+                    cost(b - a) for a, b in zip(live, live[1:]))
+    assert M.weighted_adds(cdig, spec) == {"chunks": want, "sums": 3}
 
 
 @pytest.fixture
@@ -165,18 +283,25 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("curve", ["g1", "g2"])
 def test_kernels_match_plain_on_card(cuda_device, curve):
-    """Each kernel against its plain version on the same card tensors."""
+    """Each kernel against its plain version on the same card tensors, at
+    a shape with several chunks and several blocks per window; the window
+    sums of both combine to the host MSM."""
     spec = M.SPECS[curve]
     n, lanes = 4096, 128
-    rows, sc = M.encode_inputs(_points(curve, 41, n), _ints(42, n), lanes,
-                               curve, cuda_device)
+    pts, scs = _points(curve, 41, n), _ints(42, n)
+    rows, sc = M.encode_inputs(pts, scs, lanes, curve, cuda_device)
     args = M.lane_layout(rows, sc, lanes, spec)
     K = spec.n_buckets + lanes + 2
     kd, kp = M.compact(*M.accumulate(*args, spec), K)
     pd, pp = M.compact(*M.accumulate_plain(*args, spec), K)
     assert torch.equal(kd, pd)
     assert torch.equal(kp, pp)     # same formulas, same order: same limbs
-    kw = M.weighted_sum(kd, kp, spec)
-    pw = M.weighted_sum_plain(pd, pp, spec)
-    assert (M.decode_windows(M.words_to_limbs(kw).cpu(), curve)
-            == M.decode_windows(M.words_to_limbs(pw).cpu(), curve))
+    live = int((kd != 0).sum(1).max())
+    assert live > M.CHUNKS_PER_BLOCK * spec.chunk   # chunks of 2+ blocks
+    assert M.weighted_blocks(K, spec.chunk) > 2
+    kw = M.words_to_limbs(M.weighted_sum(kd, kp, spec)).cpu()
+    pw = M.words_to_limbs(M.weighted_sum_plain(pd, pp, spec)).cpu()
+    assert M.decode_windows(kw, curve) == M.decode_windows(pw, curve)
+    want = msm_host_fast(pts, scs, curve)
+    assert M.combine_window_points(kw, curve) == want
+    assert M.combine_window_points(pw, curve) == want
