@@ -13,8 +13,8 @@ Phases, in order; any failure raises and exits nonzero:
      and the G2 `b2` query) each MSM kernel and its plain torch version give
      the same window points as affine points; both are timed; the weighted
      kernel's grid (at least one block per SM) and the adds its chunks cost
-     beside the bound's, and its time at other chunk sizes; then the median
-     of three steady `prove()` calls of the first process batch;
+     beside the bound's; then the median of three steady `prove()` calls of
+     the first process batch;
   5. negative checks: a tampered proof and a wrong public input are
      rejected;
   6. path checks: every MSM kernel was launched in the e2e run, and no
@@ -32,12 +32,6 @@ Phases, in order; any failure raises and exits nonzero:
 The last three lines of standard output are a JSON line with each kernel's
 launches, error, times and bound, then the card's name and power limit;
 the very last line is the result: {"ok": true, "device": {...}}.
-
-    python3 chip_smoke.py --prove-only
-
-runs phase 1, the e2e of phase 3 and the steady `prove()` timing alone: a
-copy of this file in each of two checkouts of the port compares their
-proving time in one run on one card.
 """
 
 from __future__ import annotations
@@ -191,7 +185,7 @@ def kernel_vs_plain(pk, witness, mul_rate):
             f"{acc_bound[0]:.3f} ms ({acc_bound[1]}); {int(live.sum())} live "
             f"slots, {adds} complete adds -> weighted bound "
             f"{wt_bound[0]:.4f} ms ({wt_bound[1]})")
-        weighted_grid(name, spec, cdig, cpts, want, adds, wt_ms)
+        weighted_grid(name, spec, cdig, adds)
         rows_out[f"msm_accum_{curve.name}"] = (err, acc_ms, acc_plain_ms,
                                               *acc_bound)
         rows_out[f"msm_weighted_{curve.name}"] = (err, wt_ms, wt_plain_ms,
@@ -199,33 +193,59 @@ def kernel_vs_plain(pk, witness, mul_rate):
     return rows_out
 
 
-def weighted_grid(name, spec, cdig, cpts, want, bound_adds, ms) -> None:
+def weighted_adds(cdig, spec) -> dict:
+    """The complete adds the weighted kernel's chunk walks do on `cdig`
+    ("chunks"), counting each lane alone, and the adds that sum the live
+    chunks' values per window ("sums"). A gap g of the walk costs
+    bitlen(g) + popcount(g) - 1 adds (double-and-add); the multiple by the
+    chunk's smallest digit, in 2-bit windows, 2 for the table, 2 per window
+    below the top one and 1 per nonzero one, and 1 to add it in."""
+    from infimum_tpu_torch.msm import msm as M
+
+    d = M._chunk_digits(cdig, spec.chunk)
+    if d is None:
+        return {"chunks": 0, "sums": 0}
+    lv = d > 0
+    gaps = torch.where(lv[..., 1:], d[..., 1:] - d[..., :-1], 0)
+    first = d[..., 0]
+    bits = torch.zeros_like(gaps)
+    ones = torch.zeros_like(gaps)
+    for b in range(spec.c_bits + 1):
+        bit = (gaps >> b) & 1
+        ones += bit
+        bits = torch.where(bit == 1, b + 1, bits)
+    walk = torch.where(gaps > 0, bits + ones - 1, 0)
+    top = torch.zeros_like(first)             # index of the top 2-bit window
+    nonzero = torch.zeros_like(first)         # nonzero windows, top included
+    for i in range(spec.c_bits // 2 + 1):
+        win = (first >> (2 * i)) & 3
+        nonzero += (win > 0).to(first.dtype)
+        top = torch.where(win > 0, i, top)
+    final = torch.where(first > 0, 2 + 2 * top + nonzero, 0)
+    n_live = lv.sum(-1)
+    live_chunks = (n_live > 0).sum(-1)
+    return {"chunks": int((n_live - 1).clamp(min=0).sum() + walk.sum()
+                          + final.sum()),
+            "sums": int((live_chunks - 1).clamp(min=0).sum())}
+
+
+def weighted_grid(name, spec, cdig, bound_adds) -> None:
     """The weighted kernel's grid and the adds its chunk walks cost beside
-    the bound's; then its time at other chunk sizes, each held against the
-    window points `want`. Fails when the default chunk gives fewer blocks
-    than the card has SMs."""
+    the bound's. Fails when the grid has fewer blocks than the card has
+    SMs."""
     from infimum_tpu_torch.msm import msm as M
 
     nwin, K = cdig.shape
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for chunk in sorted({spec.chunk, 4, 8, 16, 32}):
-        t = ms
-        if chunk != spec.chunk:
-            t, out = cuda_ms(lambda: M.weighted_sum(cdig, cpts, spec, chunk),
-                             3)
-            got = M.decode_windows(M.words_to_limbs(out).cpu(), spec.name)
-            if got != want:
-                raise AssertionError(f"{name}: chunk {chunk} windows differ")
-        blocks = M.weighted_blocks(K, chunk) * nwin
-        cost = M.weighted_adds(cdig, spec, chunk)
-        log(f"[weighted] {name} chunk {chunk}"
-            f"{' (default)' if chunk == spec.chunk else ''}: {t:.3f} ms, "
-            f"grid {blocks} blocks of {M.CHUNKS_PER_BLOCK} threads; chunk "
-            f"walks {cost['chunks']} complete adds + {cost['sums']} to sum "
-            f"the chunks = {(cost['chunks'] + cost['sums']) / bound_adds:.2f}"
-            f" x the bound's {bound_adds}")
-        if chunk == spec.chunk and blocks < sms:
-            raise AssertionError(f"{name}: {blocks} blocks on {sms} SMs")
+    blocks = M.weighted_blocks(K, spec) * nwin
+    cost = weighted_adds(cdig, spec)
+    log(f"[weighted] {name} chunk {spec.chunk}: grid {blocks} blocks of "
+        f"{M.CHUNKS_PER_BLOCK} threads; chunk walks {cost['chunks']} complete"
+        f" adds + {cost['sums']} to sum the chunks = "
+        f"{(cost['chunks'] + cost['sums']) / bound_adds:.2f} x the bound's "
+        f"{bound_adds}")
+    if blocks < sms:
+        raise AssertionError(f"{name}: {blocks} blocks on {sms} SMs")
 
 
 def steady_prove(pk, cs, witness, publics) -> float:
@@ -444,15 +464,6 @@ def main() -> int:
         raise SystemExit(f"need compute capability 9.0, got {cap}")
     mul_rate = int32_mul_rate()
     log(f"[probe] int32 multiply rate {mul_rate:.4g}/s")
-
-    if sys.argv[1:] == ["--prove-only"]:
-        from infimum_tpu_torch.client.e2e import run_reference_e2e
-
-        run = run_reference_e2e(device="cuda")
-        steady_prove(run.keys.process_pk, run.keys.process_circuit.cs,
-                     run.first_process["witness"],
-                     run.first_process["publics"])
-        return 0
 
     # 2. build
     from infimum_tpu_torch import kernels

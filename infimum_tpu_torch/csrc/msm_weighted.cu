@@ -11,7 +11,7 @@
 // first and in non-decreasing digit order, then zero padding (digit 0).
 //
 // Design, two launches:
-//  1. `msm_weighted_chunks`: one thread per chunk of `chunk` consecutive
+//  1. `msm_weighted_chunks`: one thread per chunk of CHUNK consecutive
 //     slots, 32 chunks (one warp) per block, a grid of (blocks per window,
 //     windows). A thread walks its chunk's live entries from the top digit
 //     down with a running sum: S += P_e at every entry, A += (d_above - d_e)
@@ -25,13 +25,13 @@
 // used. A block whose first slot is padding holds no live entry and writes
 // infinity at once.
 //
-// What bounds it: the latency of a thread's chain of complete adds, each a
-// few Montgomery products whose carry chains run one instruction after
-// another, at a few warps an SM; then the multiply pipe once the warps are
-// many. A warp runs its lanes' gaps and multiples in lockstep. The chunk
-// size trades threads (more warps an SM) against the per-chunk multiple by
-// the smallest digit; the wrapper's default per curve (msm.py
-// `CurveSpec.chunk`) gives at least 132 blocks at the main path's shapes.
+// What should bound it (not measured apart): the latency of a thread's
+// chain of dependent complete adds at a few warps an SM, then the multiply
+// pipe once the warps are many. A warp runs its lanes' gaps and multiples
+// in lockstep. The chunk size trades threads (more warps an SM) against
+// the per-chunk multiple by the smallest digit; it is fixed per curve
+// (CHUNK_G1, CHUNK_G2, equal to msm.py `CurveSpec.chunk`) and gives at
+// least 132 blocks at the main path's shapes.
 // The complete add stays one out-of-line function: inlined at its call
 // sites, the G2 instance made nvcc crash (segmentation fault) on sm_90a.
 #include <cuda_runtime.h>
@@ -41,6 +41,8 @@
 namespace inf {
 
 constexpr int WARP = 32;
+constexpr int CHUNK_G1 = 8;  // slots a thread walks
+constexpr int CHUNK_G2 = 4;
 
 template <class F>
 __device__ __noinline__ Proj<F> add(const Proj<F>& p, const Proj<F>& q) {
@@ -48,8 +50,8 @@ __device__ __noinline__ Proj<F> add(const Proj<F>& p, const Proj<F>& q) {
 }
 
 // Fq2 with its product out of line. With the product inlined at its 12
-// sites, the G2 complete add holds 255 registers, spills, and one thread's
-// chain of adds ran at twice the latency on an H100.
+// sites, the G2 complete add holds 255 registers and spills
+// (--resource-usage).
 __device__ __noinline__ Fq2::E fq2_mul(const Fq2::E& a, const Fq2::E& b) {
   return Fq2::mul(a, b);
 }
@@ -116,25 +118,25 @@ __device__ Proj<F> warp_sum(Proj<F> v) {
   return v;
 }
 
-template <class F>
+template <class F, int CHUNK>
 __global__ void __launch_bounds__(WARP)
 msm_weighted_chunks(const int32_t* __restrict__ cdig,
                     const uint32_t* __restrict__ cpts,
-                    uint32_t* __restrict__ partial, int K, int chunk) {
+                    uint32_t* __restrict__ partial, int K) {
   constexpr int PW = 3 * F::WORDS;
   const int win = blockIdx.y, lane = threadIdx.x;
   const int32_t* dig = cdig + (size_t)win * K;
   const uint32_t* pts = cpts + (size_t)win * PW * K;
   uint32_t* part = partial + ((size_t)win * gridDim.x + blockIdx.x) * PW;
-  const int first = blockIdx.x * WARP * chunk;
+  const int first = blockIdx.x * WARP * CHUNK;
   if (dig[first] == 0) {  // warp-uniform: the live entries lie below
     if (lane == 0) store_proj<F>(part, 1, proj_infinity<F>());
     return;
   }
 
   Proj<F> acc = proj_infinity<F>();
-  const int lo = first + lane * chunk;
-  const int hi = min(lo + chunk, K);
+  const int lo = first + lane * CHUNK;
+  const int hi = min(lo + CHUNK, K);
   if (lo < hi && dig[lo] != 0) {
     int top = lo;
     while (top + 1 < hi && dig[top + 1] != 0) ++top;
@@ -166,13 +168,13 @@ msm_weighted_combine(const uint32_t* __restrict__ partial,
   if (threadIdx.x == 0) store_proj<F>(out + (size_t)blockIdx.x * PW, 1, acc);
 }
 
-template <class F>
+template <class F, int CHUNK>
 int launch_weighted(const void* cdig, const void* cpts, void* partial,
-                    void* out, int nwin, int K, int chunk, void* stream) {
-  const int nblk = (K + WARP * chunk - 1) / (WARP * chunk);
-  msm_weighted_chunks<F><<<dim3(nblk, nwin), WARP, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)cdig, (const uint32_t*)cpts, (uint32_t*)partial, K,
-      chunk);
+                    void* out, int nwin, int K, void* stream) {
+  const int nblk = (K + WARP * CHUNK - 1) / (WARP * CHUNK);
+  msm_weighted_chunks<F, CHUNK>
+      <<<dim3(nblk, nwin), WARP, 0, (cudaStream_t)stream>>>(
+          (const int32_t*)cdig, (const uint32_t*)cpts, (uint32_t*)partial, K);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   msm_weighted_combine<F><<<nwin, WARP, 0, (cudaStream_t)stream>>>(
@@ -183,17 +185,17 @@ int launch_weighted(const void* cdig, const void* cpts, void* partial,
 }  // namespace inf
 
 // cdig: (nwin, K) int32; cpts: (nwin, 3W, K) words; partial: scratch of
-// (nwin, ceil(K / (32 * chunk)), 3W) words; out: (nwin, 3W) words.
+// (nwin, ceil(K / (32 * CHUNK)), 3W) words; out: (nwin, 3W) words.
 extern "C" int inf_msm_weighted_g1(const void* cdig, const void* cpts,
                                    void* partial, void* out, int nwin, int K,
-                                   int chunk, void* stream) {
-  return inf::launch_weighted<inf::Fq>(cdig, cpts, partial, out, nwin, K,
-                                       chunk, stream);
+                                   void* stream) {
+  return inf::launch_weighted<inf::Fq, inf::CHUNK_G1>(cdig, cpts, partial,
+                                                      out, nwin, K, stream);
 }
 
 extern "C" int inf_msm_weighted_g2(const void* cdig, const void* cpts,
                                    void* partial, void* out, int nwin, int K,
-                                   int chunk, void* stream) {
-  return inf::launch_weighted<inf::Fq2OutOfLine>(cdig, cpts, partial, out,
-                                                nwin, K, chunk, stream);
+                                   void* stream) {
+  return inf::launch_weighted<inf::Fq2OutOfLine, inf::CHUNK_G2>(
+      cdig, cpts, partial, out, nwin, K, stream);
 }

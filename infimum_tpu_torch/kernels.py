@@ -61,8 +61,8 @@ class Kernel:
 KERNELS = {
     "msm_accum_g1": Kernel("inf_msm_accum_g1", 5, 3),
     "msm_accum_g2": Kernel("inf_msm_accum_g2", 5, 3),
-    "msm_weighted_g1": Kernel("inf_msm_weighted_g1", 4, 3),
-    "msm_weighted_g2": Kernel("inf_msm_weighted_g2", 4, 3),
+    "msm_weighted_g1": Kernel("inf_msm_weighted_g1", 4, 2),
+    "msm_weighted_g2": Kernel("inf_msm_weighted_g2", 4, 2),
     "poseidon_perm": Kernel("inf_poseidon_perm", 4, 3),
 }
 

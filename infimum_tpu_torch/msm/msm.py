@@ -49,7 +49,7 @@ class CurveSpec:
         self.name = name
         self.curve = CURVES[name]
         self.c_bits = c_bits
-        self.chunk = chunk          # slots a thread of the weighted kernel walks
+        self.chunk = chunk          # = CHUNK_G1 / CHUNK_G2, msm_weighted.cu
         self.n_buckets = 1 << (c_bits - 1)
         self.n_windows = -(-254 // c_bits)
         self.RF = NLIMBS * (2 if name == "g2" else 1)  # 16-bit limbs per coord
@@ -194,31 +194,29 @@ def compact(edig, ept, K: int):
 CHUNKS_PER_BLOCK = 32       # one warp: a thread per chunk
 
 
-def weighted_blocks(K: int, chunk: int) -> int:
+def weighted_blocks(K: int, spec: CurveSpec) -> int:
     """Blocks per window of the weighted kernel's first launch."""
-    return -(-K // (CHUNKS_PER_BLOCK * chunk))
+    return -(-K // (CHUNKS_PER_BLOCK * spec.chunk))
 
 
-def weighted_sum(cdig, cpts, spec: CurveSpec, chunk: int | None = None):
+def weighted_sum(cdig, cpts, spec: CurveSpec):
     """cdig (nwin, K) int32, non-decreasing live digits then zeros; cpts
     (nwin, PW, K) int32 words -> (nwin, PW) int32 words: per window the
-    projective sum of digit * point. `chunk`: slots a thread walks
-    (default `spec.chunk`)."""
-    chunk = chunk or spec.chunk
+    projective sum of digit * point."""
     if cpts.device.type == "cuda":
         nwin, K = cdig.shape
         _check(cdig, (nwin, K), "cdig")
         _check(cpts, (nwin, spec.PW, K), "cpts")
-        partial = torch.empty((nwin, weighted_blocks(K, chunk), spec.PW),
+        partial = torch.empty((nwin, weighted_blocks(K, spec), spec.PW),
                               dtype=torch.int32, device=cpts.device)
         out = torch.empty((nwin, spec.PW), dtype=torch.int32,
                           device=cpts.device)
         kernels.KERNELS[f"msm_weighted_{spec.name}"](
-            cdig, cpts, partial, out, nwin, K, chunk)
+            cdig, cpts, partial, out, nwin, K)
         return out
     if cpts.device.type != "cpu":
         raise ValueError(f"no msm_weighted kernel for {cpts.device}")
-    return weighted_sum_plain(cdig, cpts, spec, chunk)
+    return weighted_sum_plain(cdig, cpts, spec)
 
 
 def _chunk_digits(cdig, chunk: int):
@@ -257,13 +255,13 @@ def _add_multiple(curve, a, s, g):
     return curve.add(a, t)
 
 
-def weighted_sum_plain(cdig, cpts, spec: CurveSpec, chunk: int | None = None):
+def weighted_sum_plain(cdig, cpts, spec: CurveSpec):
     """Plain torch version of the weighted kernel, the same algorithm: each
-    chunk of `chunk` slots walked from its top entry down with a running
+    chunk of `spec.chunk` slots walked from its top entry down with a running
     sum (S += P_e, A += (d_above - d_e) * S, then A += d_first * S), then
     a halving tree over the chunk values. Compaction puts the live entries
     first, so only the chunks of the longest live prefix are computed."""
-    chunk = chunk or spec.chunk
+    chunk = spec.chunk
     curve = spec.curve
     nwin = cdig.shape[0]
     dev = cdig.device
@@ -294,41 +292,6 @@ def weighted_sum_plain(cdig, cpts, spec: CurveSpec, chunk: int | None = None):
         part = curve.add(tuple(c[:, :n // 2] for c in part),
                          tuple(c[:, n // 2:] for c in part))
     return _point_words(tuple(c[:, 0] for c in part), spec)
-
-
-def weighted_adds(cdig, spec: CurveSpec, chunk: int | None = None) -> dict:
-    """The complete adds the weighted kernel's chunk walks do on `cdig`
-    ("chunks"), counting each lane alone, and the adds that sum the live
-    chunks' values per window ("sums"). A gap g of the walk costs
-    bitlen(g) + popcount(g) - 1 adds (double-and-add); the multiple by the
-    chunk's smallest digit, in 2-bit windows, 2 for the table, 2 per window
-    below the top one and 1 per nonzero one, and 1 to add it in."""
-    chunk = chunk or spec.chunk
-    d = _chunk_digits(cdig, chunk)
-    if d is None:
-        return {"chunks": 0, "sums": 0}
-    lv = d > 0
-    gaps = torch.where(lv[..., 1:], d[..., 1:] - d[..., :-1], 0)
-    first = d[..., 0]
-    bits = torch.zeros_like(gaps)
-    ones = torch.zeros_like(gaps)
-    for b in range(spec.c_bits + 1):
-        bit = (gaps >> b) & 1
-        ones += bit
-        bits = torch.where(bit == 1, b + 1, bits)
-    walk = torch.where(gaps > 0, bits + ones - 1, 0)
-    top = torch.zeros_like(first)             # index of the top 2-bit window
-    nonzero = torch.zeros_like(first)         # nonzero windows, top included
-    for i in range(spec.c_bits // 2 + 1):
-        win = (first >> (2 * i)) & 3
-        nonzero += (win > 0).to(first.dtype)
-        top = torch.where(win > 0, i, top)
-    final = torch.where(first > 0, 2 + 2 * top + nonzero, 0)
-    n_live = lv.sum(-1)
-    live_chunks = (n_live > 0).sum(-1)
-    return {"chunks": int((n_live - 1).clamp(min=0).sum() + walk.sum()
-                          + final.sum()),
-            "sums": int((live_chunks - 1).clamp(min=0).sum())}
 
 
 # -- orchestration ------------------------------------------------------------------

@@ -241,13 +241,25 @@ def test_weighted_grid_fills_card():
     for curve, lanes in (("g1", 4096), ("g2", 2048)):
         spec = M.SPECS[curve]
         K = spec.n_buckets + lanes + 2
-        assert M.weighted_blocks(K, spec.chunk) * spec.n_windows >= 132
+        assert M.weighted_blocks(K, spec) * spec.n_windows >= 132
+
+
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_weighted_chunk_matches_kernel(curve):
+    """The chunk the plain version and the scratch buffer's size use is the
+    kernel's compiled-in chunk for the curve."""
+    src = (pathlib.Path(M.__file__).parents[1] / "csrc"
+           / "msm_weighted.cu").read_text()
+    chunk = re.search(rf"constexpr int CHUNK_{curve.upper()} = (\d+);", src)
+    assert int(chunk.group(1)) == M.SPECS[curve].chunk
 
 
 @pytest.mark.parametrize("curve", ["g1", "g2"])
 def test_weighted_adds_count(curve):
-    """`weighted_adds` counts the chunk walks' adds as a walk over the
-    digits does, and the sums of the live chunks' values."""
+    """`chip_smoke.weighted_adds` counts the chunk walks' adds as a walk
+    over the digits does, and the sums of the live chunks' values."""
+    import chip_smoke
+
     spec = M.SPECS[curve]
     C = spec.chunk
     digits = sorted(int(d) for d in np.random.default_rng(53).integers(
@@ -270,7 +282,8 @@ def test_weighted_adds_count(curve):
             if live:
                 want += len(live) - 1 + cost_w2(live[0]) + sum(
                     cost(b - a) for a, b in zip(live, live[1:]))
-    assert M.weighted_adds(cdig, spec) == {"chunks": want, "sums": 3}
+    assert chip_smoke.weighted_adds(cdig, spec) == {"chunks": want,
+                                                     "sums": 3}
 
 
 @pytest.fixture
@@ -298,7 +311,7 @@ def test_kernels_match_plain_on_card(cuda_device, curve):
     assert torch.equal(kp, pp)     # same formulas, same order: same limbs
     live = int((kd != 0).sum(1).max())
     assert live > M.CHUNKS_PER_BLOCK * spec.chunk   # chunks of 2+ blocks
-    assert M.weighted_blocks(K, spec.chunk) > 2
+    assert M.weighted_blocks(K, spec) > 2
     kw = M.words_to_limbs(M.weighted_sum(kd, kp, spec)).cpu()
     pw = M.words_to_limbs(M.weighted_sum_plain(pd, pp, spec)).cpu()
     assert M.decode_windows(kw, curve) == M.decode_windows(pw, curve)
