@@ -9,12 +9,15 @@ Phases, in order; any failure raises and exits nonzero:
      TallyVotes(10,1,2): setup on the card, the poll lifecycle, all six
      batches proved through infimum_tpu_torch, each verified by the native
      pairing against the poll's own public inputs, outcome option 5;
-  4. kernel vs plain: on the first process proof's inputs (the G1 `a` query
-     and the G2 `b2` query) each MSM kernel and its plain torch version give
-     the same window points as affine points; both are timed; the weighted
+  4. kernels at the first process proof's shapes: at each of its five
+     MSMs (`a`, `b1`, `l`, `h` over G1, `b2` over G2) the layout stage and
+     the accumulation kernel timed, with the mixed adds, the bound, the
+     kernel's registers and its grid in waves; at `a` and `b2` each MSM
+     kernel held against its plain torch version (equal emitted digits and
+     limbs, equal window points as affine points) and timed; the weighted
      kernel's grid (at least one block per SM) and the adds its chunks cost
-     beside the bound's; then the median of three steady `prove()` calls of
-     the first process batch;
+     beside the bound's; then the median of three steady `prove()` calls
+     of the first process batch;
   5. negative checks: a tampered proof and a wrong public input are
      rejected;
   6. path checks: every MSM kernel was launched in the e2e run, and no
@@ -39,11 +42,13 @@ from __future__ import annotations
 import json
 import os
 import random
+import re
 import subprocess
 import sys
 import time
 
 import torch
+import torch.nn.functional as tnf
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 KERNEL_ROWS = (
@@ -111,9 +116,11 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def cuda_ms(fn, reps: int):
-    """(mean milliseconds of fn() over `reps` runs by CUDA events, the last
-    run's result)."""
+def cuda_ms(fn, reps: int, warm: int = 0):
+    """(mean milliseconds of fn() over `reps` runs by CUDA events after
+    `warm` untimed runs, the last run's result)."""
+    for _ in range(warm):
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -124,29 +131,102 @@ def cuda_ms(fn, reps: int):
     return start.elapsed_time(end) / reps, out
 
 
-def kernel_vs_plain(pk, witness, mul_rate):
-    """Compare each MSM kernel with its plain version on the first process
-    proof's `a` (G1) and `b2` (G2) MSM inputs; returns per-kernel rows
-    (error, ms, plain ms, bound ms, bound by)."""
+def query_inputs(pk, cs, witness):
+    """The five MSMs of one process proof as `prove()` dispatches them:
+    (name, curve, rows, scalars, lanes) for `a`, `b1`, `l`, `h` (G1) and
+    `b2` (G2)."""
     from infimum_tpu_torch.curve.proj import G1_DEV, G2_DEV
     from infimum_tpu_torch.ff.bn254 import FR_MOD
     from infimum_tpu_torch.ff.fp import NLIMBS, ints_to_tensor
-    from infimum_tpu_torch.groth16.groth16 import _query_encoding
-    from infimum_tpu_torch.msm import msm as M
+    from infimum_tpu_torch.groth16.groth16 import (
+        _domain_size, _query_encoding, h_rows,
+    )
 
     w = ints_to_tensor([x % FR_MOD for x in witness], "cuda")
-    rows_out = {}
-    for name, points, curve in (("a", pk.a_query, G1_DEV),
-                                ("b2", pk.b_g2_query, G2_DEV)):
-        spec = M.SPECS[curve.name]
+    npub, m = cs.num_public + 1, _domain_size(cs)
+    out = []
+    for name, points, curve, scalars in (
+            ("a", pk.a_query, G1_DEV, w), ("b1", pk.b_g1_query, G1_DEV, w),
+            ("l", pk.l_query, G1_DEV, w[npub:]),
+            ("h", pk.h_query, G1_DEV, h_rows(cs, witness, "cuda")[:m - 1]),
+            ("b2", pk.b_g2_query, G2_DEV, w)):
         rows, none_mask, lanes = _query_encoding(pk, name, points, curve,
                                                  "cuda")
+        n = scalars.shape[0]
         sc = torch.zeros((rows.shape[0], NLIMBS), dtype=torch.int64,
                          device="cuda")
-        sc[:w.shape[0]] = torch.where(none_mask.unsqueeze(-1), 0, w)
+        sc[:n] = torch.where(none_mask[:n].unsqueeze(-1), 0, scalars)
+        out.append((name, curve, rows, sc, lanes))
+    return out
+
+
+RESOURCES = re.compile(
+    r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, (\d+) bytes "
+    r"spill stores, (\d+) bytes spill loads(?:\nptxas info\s*: Used (\d+) "
+    r"registers)?")
+
+
+def accum_resources(curve: str) -> str:
+    """The accumulation kernel's registers and spills for `curve` from
+    nvcc's --resource-usage report of this run's build."""
+    from infimum_tpu_torch import kernels
+
+    tag = "12Fq2OutOfLine" if curve == "g2" else "11FqOutOfLine"
+    for m in RESOURCES.finditer(kernels.BUILD_INFO.get("log", "")):
+        if "msm_accum_kernel" in m.group(1) and tag in m.group(1):
+            return (f"{m.group(5)} registers, {m.group(2)} B stack, "
+                    f"{m.group(3)} B spill stores, {m.group(4)} B spill loads")
+    return "registers not in this run's build log"
+
+
+def accum_grid(sdig, lanes: int, curve: str):
+    """(blocks, blocks with a live lane, resident blocks) of the
+    accumulation kernel's grid: one warp of lanes a block."""
+    from infimum_tpu_torch import kernels
+    from infimum_tpu_torch.msm import msm as M
+
+    nwin = sdig.shape[0]
+    nlb = -(-lanes // M.ACCUM_BLOCK)
+    lane_live = sdig[..., -1] > 0              # a lane's last digit is its top
+    live = tnf.pad(lane_live, (0, nlb * M.ACCUM_BLOCK - lanes)).view(
+        nwin, nlb, M.ACCUM_BLOCK).any(-1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return (nlb * nwin, int(live.sum()),
+            kernels.accum_blocks_per_sm(curve) * sms)
+
+
+def kernel_vs_plain(pk, cs, witness, mul_rate):
+    """Time the accumulation kernel and the layout before it at the five
+    MSM shapes of the first process proof; at `a` (G1) and `b2` (G2) also
+    compare each MSM kernel with its plain version. Returns per-kernel rows
+    (error, ms, plain ms, bound ms, bound by) at `a` and `b2`."""
+    from infimum_tpu_torch.msm import msm as M
+
+    rows_out = {}
+    for name, curve, rows, sc, lanes in query_inputs(pk, cs, witness):
+        spec = M.SPECS[curve.name]
         N = rows.shape[0]
-        layout = M.lane_layout(rows, sc, lanes, spec)
-        acc_ms, (edig, ept) = cuda_ms(lambda: M.accumulate(*layout, spec), 3)
+        lay_ms, layout = cuda_ms(
+            lambda: M.lane_layout(rows, sc, lanes, spec), 3, warm=1)
+        acc_ms, (edig, ept) = cuda_ms(lambda: M.accumulate(*layout, spec), 3,
+                                      warm=1)
+        # the least work these inputs need: one mixed add per entry whose
+        # digit repeats the one before it in its lane (and is not 0)
+        sdig = layout[0]
+        mixed = int(((sdig[..., 1:] == sdig[..., :-1]) & (sdig[..., 1:] != 0))
+                    .sum())
+        acc_bound = bound(nbytes(*layout, edig, ept),
+                          mixed * MIXED_MULS[curve.name], mul_rate)
+        blocks, live, resident = accum_grid(sdig, lanes, curve.name)
+        log(f"[accum] {name} ({curve.name}, {N} rows, {lanes} lanes, T "
+            f"{N // lanes}): layout {lay_ms:.3f} ms; kernel {acc_ms:.3f} ms;"
+            f" {mixed} mixed adds, bound {acc_bound[0]:.3f} ms "
+            f"({acc_bound[1]}), {acc_bound[0] / acc_ms:.1%} of bound; "
+            f"{accum_resources(curve.name)}; grid {blocks} blocks, {live} "
+            f"with a live lane, {resident} resident = "
+            f"{blocks / resident:.2f} waves ({live / resident:.2f} live)")
+        if name not in ("a", "b2"):
+            continue
         acc_plain_ms, plain_e = cuda_ms(
             lambda: M.accumulate_plain(*layout, spec), 1)
         K = spec.n_buckets + lanes + 2
@@ -154,37 +234,32 @@ def kernel_vs_plain(pk, witness, mul_rate):
         pdig, ppts = M.compact(*plain_e, K)
         if not torch.equal(cdig, pdig):
             raise AssertionError(f"{name}: emitted digits differ")
+        if not torch.equal(cpts, ppts):
+            raise AssertionError(f"{name}: emitted points differ")
         wt_ms, wk = cuda_ms(lambda: M.weighted_sum(cdig, cpts, spec), 3)
         wt_plain_ms, wp = cuda_ms(
             lambda: M.weighted_sum_plain(pdig, ppts, spec), 1)
         got = M.decode_windows(M.words_to_limbs(wk).cpu(), curve.name)
         want = M.decode_windows(M.words_to_limbs(wp).cpu(), curve.name)
         err = max(_affine_err(g, p) for g, p in zip(got, want))
-        log(f"[kernel_vs_plain] {name} ({curve.name}, {N} rows, {lanes} "
-            f"lanes): accum {acc_ms:.3f} ms vs plain {acc_plain_ms:.3f} ms;"
-            f" weighted {wt_ms:.3f} ms vs plain {wt_plain_ms:.3f} ms; "
-            f"window points equal: {got == want}")
+        log(f"[kernel_vs_plain] {name} ({curve.name}): accum {acc_ms:.3f} ms"
+            f" vs plain {acc_plain_ms:.3f} ms, emissions equal (digits and "
+            f"limbs); weighted {wt_ms:.3f} ms vs plain {wt_plain_ms:.3f} ms;"
+            f" window points equal: {got == want}")
         if got != want:
             raise AssertionError(f"{name}: kernel and plain windows differ")
-        # the least work these inputs need: one mixed add per entry whose
-        # digit repeats the one before it (and is not 0); per window, with a
-        # running sum (the slots of a digit summed into its bucket, then from
-        # the largest digit D down the running bucket sum added into the
-        # total once a digit): live slots + D - 2 complete adds
-        sdig = layout[0]
-        mixed = int(((sdig[:, 1:] == sdig[:, :-1]) & (sdig[:, 1:] != 0))
-                    .sum())
-        live = (cdig > 0).sum(1)
+        # per window, with a running sum (the slots of a digit summed into
+        # its bucket, then from the largest digit D down the running bucket
+        # sum added into the total once a digit): live slots + D - 2
+        # complete adds
+        live_slots = (cdig > 0).sum(1)
         top = cdig.max(1).values.to(torch.int64)
-        adds = int(torch.where(live > 0, live + top - 2, 0).sum())
-        acc_bound = bound(nbytes(*layout, edig, ept),
-                          mixed * MIXED_MULS[curve.name], mul_rate)
+        adds = int(torch.where(live_slots > 0, live_slots + top - 2, 0).sum())
         wt_bound = bound(nbytes(cdig, cpts, wk),
                          adds * ADD_MULS[curve.name], mul_rate)
-        log(f"[bound] {name}: {mixed} mixed adds -> accum bound "
-            f"{acc_bound[0]:.3f} ms ({acc_bound[1]}); {int(live.sum())} live "
-            f"slots, {adds} complete adds -> weighted bound "
-            f"{wt_bound[0]:.4f} ms ({wt_bound[1]})")
+        log(f"[bound] {name}: {int(live_slots.sum())} live slots, {adds} "
+            f"complete adds -> weighted bound {wt_bound[0]:.4f} ms "
+            f"({wt_bound[1]})")
         weighted_grid(name, spec, cdig, adds)
         rows_out[f"msm_accum_{curve.name}"] = (err, acc_ms, acc_plain_ms,
                                               *acc_bound)
@@ -399,8 +474,7 @@ def bench_batch(native, mul_rate):
                                    device="cuda"),
                        torch.stack([FR_CTX.encode(c, "cuda") for c in cols])])
     words = limbs_to_words(state).transpose(1, 2).contiguous()
-    H.perm_words(words)                                   # warm
-    ms, out_words = cuda_ms(lambda: H.perm_words(words), 10)
+    ms, out_words = cuda_ms(lambda: H.perm_words(words), 10, warm=1)
     plain_ms, plain = cuda_ms(lambda: H.poseidon_perm_plain(state), 1)
     kernel = H.poseidon_perm(state)
     if not torch.equal(kernel, plain):
@@ -496,7 +570,8 @@ def main() -> int:
 
     # 4. kernel vs plain on the first process proof's inputs
     first = run.first_process
-    cmp = kernel_vs_plain(run.keys.process_pk, first["witness"], mul_rate)
+    cmp = kernel_vs_plain(run.keys.process_pk, run.keys.process_circuit.cs,
+                          first["witness"], mul_rate)
     steady_prove(run.keys.process_pk, run.keys.process_circuit.cs,
                  first["witness"], first["publics"])
 

@@ -6,12 +6,13 @@
 // Fq2, rcb_add, rcb_add_mixed) and infimum_tpu/ff/pallas_fp.py (Fr). A
 // field element is 8 little-endian 32-bit words in Montgomery form with
 // R = 2^256: the same integer as the reference's 16 x 16-bit limbs, so word
-// i = limb 2i | limb 2i+1 << 16. Multiplication is CIOS Montgomery with
-// 32x32->64-bit products; the TPU's 16-bit limbs and exact-f32 column
-// tricks are not needed on this card. Fp<Params> is generic over the
+// i = limb 2i | limb 2i+1 << 16. Multiplication is CIOS Montgomery over
+// 32-bit words with PTX carry chains; the TPU's 16-bit limbs and exact-f32
+// column tricks are not needed on this card. Fp<Params> is generic over the
 // modulus: Fq = Fp<FqParams>, Fr = Fp<FrParams>. An Fq2 element is
 // (c0, c1) with u^2 = -1, words c0[0..7] then c1[0..7]. Every function is
-// inline and straight-line over registers.
+// inline and straight-line over registers, but for the out-of-line
+// products of FqOutOfLine and Fq2OutOfLine.
 //
 // The constants below are checked against the Python values by
 // tests/test_torch_msm.py (test_field_header_constants).
@@ -42,6 +43,37 @@ namespace inf {
 // R mod r (1 in Montgomery form)
 #define INF_FR_ONE {0x4ffffffbu, 0xac96341cu, 0x9f60cd29u, 0x36fc7695u, \
                     0x7879462eu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u}
+
+// PTX carry-chain steps for the Montgomery product. Each is one
+// instruction; the carry flag flows from one asm statement to the next,
+// which nvcc keeps in order (volatile) and emits nothing between that
+// touches the flag.
+namespace ptx {
+#define INF_PTX3(name, op)                                               \
+  __device__ __forceinline__ uint32_t name(uint32_t a, uint32_t b,        \
+                                           uint32_t c) {                  \
+    uint32_t r;                                                           \
+    asm volatile(op " %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c)); \
+    return r;                                                             \
+  }
+#define INF_PTX2(name, op)                                        \
+  __device__ __forceinline__ uint32_t name(uint32_t a, uint32_t b) { \
+    uint32_t r;                                                   \
+    asm volatile(op " %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));   \
+    return r;                                                     \
+  }
+INF_PTX3(mad_lo_cc, "mad.lo.cc.u32")
+INF_PTX3(madc_lo_cc, "madc.lo.cc.u32")
+INF_PTX3(mad_hi_cc, "mad.hi.cc.u32")
+INF_PTX3(madc_hi_cc, "madc.hi.cc.u32")
+INF_PTX3(madc_hi, "madc.hi.u32")
+INF_PTX2(addc, "addc.u32")
+INF_PTX2(sub_cc, "sub.cc.u32")
+INF_PTX2(subc_cc, "subc.cc.u32")
+INF_PTX2(subc, "subc.u32")
+#undef INF_PTX3
+#undef INF_PTX2
+}  // namespace ptx
 
 // A modulus as the device code reads it: word i of the modulus and of
 // R mod modulus (constant once the word loops unroll), and -modulus^-1
@@ -146,40 +178,60 @@ struct Fp {
 
   static __device__ __forceinline__ E neg(const E& a) { return sub(zero(), a); }
 
-  // CIOS Montgomery product a * b * 2^-256 mod p. Every 64-bit accumulator
-  // step adds at most (2^32-1)^2 + 2(2^32-1) = 2^64-1, so nothing wraps.
+  // CIOS Montgomery product a * b * 2^-256 mod p, each row's low and high
+  // halves added with PTX carry chains (mad.lo.cc / madc.hi.cc): the
+  // carries ride the hardware carry flag instead of 64-bit accumulators.
+  // t < 2p before each row, so t + a * b_i + m * p < 2^288: 9 words hold
+  // every row and nothing carries out of t[8].
   static __device__ __forceinline__ E mul(const E& a, const E& b) {
-    uint32_t t[10];
+    uint32_t t[9];
 #pragma unroll
-    for (int i = 0; i < 10; ++i) t[i] = 0;
+    for (int j = 0; j < 8; ++j) t[j] = a.w[j] * b.w[0];
+    t[8] = __umulhi(a.w[7], b.w[0]);
+    t[1] = ptx::mad_hi_cc(a.w[0], b.w[0], t[1]);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      uint64_t c = 0;
+    for (int j = 1; j < 7; ++j)
+      t[j + 1] = ptx::madc_hi_cc(a.w[j], b.w[0], t[j + 1]);
+    t[8] = ptx::addc(t[8], 0);
+    reduce_row(t);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        c += (uint64_t)t[j] + (uint64_t)a.w[j] * b.w[i];
-        t[j] = (uint32_t)c;
-        c >>= 32;
-      }
-      c += t[8];
-      t[8] = (uint32_t)c;
-      t[9] = (uint32_t)(c >> 32);
-      const uint32_t m = t[0] * Params::INV;
-      c = ((uint64_t)t[0] + (uint64_t)m * Params::p(0)) >> 32;
+    for (int i = 1; i < 8; ++i) {
+      t[0] = ptx::mad_lo_cc(a.w[0], b.w[i], t[0]);
 #pragma unroll
-      for (int j = 1; j < 8; ++j) {
-        c += (uint64_t)t[j] + (uint64_t)m * Params::p(j);
-        t[j - 1] = (uint32_t)c;
-        c >>= 32;
-      }
-      c += t[8];
-      t[7] = (uint32_t)c;
-      t[8] = t[9] + (uint32_t)(c >> 32);
+      for (int j = 1; j < 8; ++j) t[j] = ptx::madc_lo_cc(a.w[j], b.w[i], t[j]);
+      t[8] = ptx::addc(t[8], 0);
+      t[1] = ptx::mad_hi_cc(a.w[0], b.w[i], t[1]);
+#pragma unroll
+      for (int j = 1; j < 7; ++j)
+        t[j + 1] = ptx::madc_hi_cc(a.w[j], b.w[i], t[j + 1]);
+      t[8] = ptx::madc_hi(a.w[7], b.w[i], t[8]);
+      reduce_row(t);
     }
-    E r;  // t < 2p < 2^255 for a, b < p, so t[8] == 0
+    E d, r;  // t < 2p: subtract p once where t >= p
+    d.w[0] = ptx::sub_cc(t[0], Params::p(0));
 #pragma unroll
-    for (int i = 0; i < 8; ++i) r.w[i] = t[i];
-    return reduce_once(r);
+    for (int j = 1; j < 8; ++j) d.w[j] = ptx::subc_cc(t[j], Params::p(j));
+    const uint32_t borrow = ptx::subc(0, 0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) r.w[j] = borrow ? t[j] : d.w[j];
+    return r;
+  }
+
+  // t += m * p with m = -t[0] / p mod 2^32, then t >>= 32 (t[0] is then 0)
+  static __device__ __forceinline__ void reduce_row(uint32_t (&t)[9]) {
+    const uint32_t m = t[0] * Params::INV;
+    ptx::mad_lo_cc(m, Params::p(0), t[0]);
+#pragma unroll
+    for (int j = 1; j < 8; ++j) t[j] = ptx::madc_lo_cc(m, Params::p(j), t[j]);
+    t[8] = ptx::addc(t[8], 0);
+    t[1] = ptx::mad_hi_cc(m, Params::p(0), t[1]);
+#pragma unroll
+    for (int j = 1; j < 7; ++j)
+      t[j + 1] = ptx::madc_hi_cc(m, Params::p(j), t[j + 1]);
+    t[8] = ptx::madc_hi(m, Params::p(7), t[8]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) t[j] = t[j + 1];
+    t[8] = 0;
   }
 
   // 9x = 3b * x for G1 (b = 3), over Fq: three doublings and an add
@@ -206,6 +258,15 @@ struct Fp {
 
 using Fq = Fp<FqParams>;
 using Fr = Fp<FrParams>;
+
+// Fq with its product out of line, the field of the G1 accumulation: one
+// copy of the product's code instead of 11 inlined in each mixed add
+// (about 100 KB of SASS, more than the instruction cache holds). The
+// operands go by value, in registers: by reference they went through a
+// 352-byte stack frame and the kernel ran slower (PERF.md, section 6).
+struct FqOutOfLine : Fq {
+  static __device__ __noinline__ E mul(E a, E b) { return Fq::mul(a, b); }
+};
 
 struct Fq2 {
   static constexpr int WORDS = 16;
@@ -236,16 +297,6 @@ struct Fq2 {
     return {Fq::sub(v0, v1), Fq::sub(Fq::sub(s, v0), v1)};
   }
 
-  // x * 3b2 with the constant 3b2 = k0 + k1 u: 4 Fq products
-  static __device__ __forceinline__ E b3(const E& x) {
-    constexpr uint32_t K0[8] = INF_G2_B3_C0;
-    constexpr uint32_t K1[8] = INF_G2_B3_C1;
-    const Fq::E k0 = Fq::constant(K0);
-    const Fq::E k1 = Fq::constant(K1);
-    return {Fq::sub(Fq::mul(x.c0, k0), Fq::mul(x.c1, k1)),
-            Fq::add(Fq::mul(x.c0, k1), Fq::mul(x.c1, k0))};
-  }
-
   static __device__ __forceinline__ E load(const uint32_t* p, size_t stride) {
     return {Fq::load(p, stride), Fq::load(p + 8 * stride, stride)};
   }
@@ -254,6 +305,26 @@ struct Fq2 {
                                                const E& a) {
     Fq::store(p, stride, a.c0);
     Fq::store(p + 8 * stride, stride, a.c1);
+  }
+};
+
+// Fq2 with its product out of line, the field of both G2 kernels (Fq2 has
+// no b3 of its own). With the product inlined at its call sites a G2 add
+// holds 255 registers and spills (--resource-usage), and a chain of
+// complete adds ran at 1.9x the latency (87.2 against 46.4 us an add on an
+// H100, PERF.md, section 6). By reference, unlike FqOutOfLine: by value
+// the accumulation kernel spilled and ran no faster.
+struct Fq2OutOfLine : Fq2 {
+  static __device__ __noinline__ E mul(const E& a, const E& b) {
+    return Fq2::mul(a, b);
+  }
+
+  // x * 3b2 (3b2 = k0 + k1 u) as one out-of-line product by the constant:
+  // 3 Fq products
+  static __device__ __forceinline__ E b3(const E& x) {
+    constexpr uint32_t K0[8] = INF_G2_B3_C0;
+    constexpr uint32_t K1[8] = INF_G2_B3_C1;
+    return mul(x, {Fq::constant(K0), Fq::constant(K1)});
   }
 };
 

@@ -1,7 +1,8 @@
 // Run-emission bucket accumulation for the signed-digit Pippenger MSM.
 //
 // Replaces infimum_tpu/msm/pallas_msm.py _make_accum_kernel, launched by
-// _accum_call (the TPU's grid over T with the accumulator in VMEM scratch).
+// _accum_call (the TPU's grid over T with the accumulator in VMEM scratch,
+// over points that XLA had gathered into a limb-major lane layout).
 //
 // What it computes, per window and lane: the lane walks its T entries of the
 // window's |digit|-sorted order. Where the sign is set it negates y. While
@@ -12,89 +13,174 @@
 // the zero-scalar padding never contribute. The emission contract is the
 // reference's, so the compaction after it is the same torch code.
 //
-// Design: one thread per (window, lane); blockIdx.y is the window, so all
-// windows run in one launch (the reference's lax.scan over windows exists
-// only for XLA). Entries are limb-major, [window][t][word][lane], as the
-// reference's (T, AF, 8, W) blocks: a warp reads 32 consecutive words of
-// each coordinate word. Dead emissions are not stored (their digit is 0 and
-// the compaction drops them), and zero digits skip the add.
+// Design:
+//  - The gather is in the kernel. It reads the sorted digits, the signs and
+//    the sort's order as torch.sort leaves them, (nwin, L, T) with lane l at
+//    l * T + t, and the (N, 2W) row-major table of affine points. A thread
+//    reads its entry's row through `order` with 16-byte loads, and before
+//    it adds the current entry it issues the next entry's row loads and
+//    the digit, sign and row of the one after, so no load is waited on;
+//    the table (9-18 MB at the main path's shapes) stays in the 50 MB L2.
+//    The TPU needed the points copied into a limb-major layout first (a
+//    Pallas TPU kernel cannot gather rows lane by lane); that copy is gone.
+//  - One thread per (window, lane), so each lane's walk stays in one thread
+//    and in order, and the emissions are what they were.
+//  - Blocks of one warp over (lane block, window), the highest lane blocks
+//    of every window first. Sorted by |digit|, a window's low lanes hold its
+//    zero digits and finish at once: issued last, they fill the last wave
+//    instead of leaving it mostly empty. inf_msm_accum_blocks_per_sm_*
+//    reports the resident blocks (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+//  - The products are out of line: G1 runs over FqOutOfLine, G2 over
+//    Fq2OutOfLine (field.cuh). Inlined, a G1 mixed add's 11 products are
+//    about 100 KB of code a step, more than the instruction cache holds:
+//    bench/mont_bench.py's chain of mixed adds runs faster at 8-16 warps
+//    an SM with one out-of-line product than with the 11 inlined.
+//  - Dead emissions are not stored (their digit is 0 and the compaction
+//    drops them), and zero digits skip both the point's load and the add.
 //
-// What bounds it: integer multiply throughput and registers. A G1 mixed add
-// is 11 Fq products of 64 32x32->64 multiply-adds each, on 8-word limbs; the
-// loads are 64 bytes (G1) or 128 bytes (G2) per entry, far below the card's
-// bandwidth at these rates. For G2 the accumulator alone is 6 Fq (48
-// registers) beside the 4-Fq point and the Karatsuba temporaries.
-// `nvcc --resource-usage` (kernels.py keeps its report) for sm_90a, CUDA
-// 12.8: the G1 instance uses 145 registers and no spills; the G2 instance
-// uses 255 registers with 48 bytes of spill stores and loads.
+// What bounds it, on an H100 (PERF.md, section 6): issuing the Montgomery
+// products' multiply-adds and carry chains, 11 Fq products a G1 mixed add
+// and 39 a G2 one (13 Fq2 products of 3), at 12 (G1) or 8 (G2) warps an
+// SM. nvcc --resource-usage for sm_90a, CUDA 12.9: G1 142 registers, no
+// stack; G2 220 registers and a 768-byte stack frame (the Fq2 product's
+// operands), no spills. More warps an SM (G1 capped at 128 registers for
+// 16) ran slower, not faster. The bytes (digits, signs, order, one read
+// of the table, the emissions) are far below the card's rate.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
 
 namespace inf {
 
-template <class F>
-__global__ void __launch_bounds__(128)
-msm_accum_kernel(const int32_t* __restrict__ sdig,
-                 const int32_t* __restrict__ ssgn,
-                 const uint32_t* __restrict__ spts, int32_t* __restrict__ edig,
-                 uint32_t* __restrict__ ept, int T, int L) {
-  constexpr int W = F::WORDS;
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= L) return;
-  const size_t in_row = (size_t)blockIdx.y * T;
-  const size_t out_row = (size_t)blockIdx.y * (T + 1);
+constexpr int ACCUM_BLOCK = 32;  // threads (lanes) a block: one warp
 
-  Proj<F> acc = proj_infinity<F>();
-  int32_t ad = 0;
-  for (int t = 0; t < T; ++t) {
-    const size_t r = in_row + t;
-    const int32_t d = sdig[r * L + lane];
-    const uint32_t* p = spts + r * (2 * W) * L + lane;
-    const typename F::E px = F::load(p, L);
-    typename F::E py = F::load(p + (size_t)W * L, L);
-    if (ssgn[r * L + lane]) py = F::neg(py);
-    const size_t o = out_row + t;
-    if (d == ad) {
-      edig[o * L + lane] = 0;
-      if (d != 0) acc = rcb_add_mixed<F>(acc, px, py);
-    } else {
-      edig[o * L + lane] = ad;
-      if (ad != 0) store_proj<F>(ept + o * (3 * W) * L + lane, L, acc);
-      acc = {px, py, F::one()};
-      ad = d;
-    }
-  }
-  const size_t o = out_row + T;
-  edig[o * L + lane] = ad;
-  store_proj<F>(ept + o * (3 * W) * L + lane, L, acc);
+template <class F>
+struct Affine {
+  typename F::E x, y;
+};
+
+// table row `row`: x then y, W words each, read as 16-byte vectors
+template <class F>
+__device__ __forceinline__ Affine<F> load_row(const uint4* __restrict__ table,
+                                              int32_t row) {
+  constexpr int W = F::WORDS, V = 2 * W / 4;
+  uint4 v[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) v[k] = __ldg(table + (size_t)row * V + k);
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(v);
+  return {F::load(w, 1), F::load(w + W, 1)};
 }
 
 template <class F>
-int launch_accum(const void* sdig, const void* ssgn, const void* spts,
-                 void* edig, void* ept, int nwin, int T, int L, void* stream) {
-  const dim3 block(128);
-  const dim3 grid((L + 127) / 128, nwin);
-  msm_accum_kernel<F><<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)sdig, (const int32_t*)ssgn, (const uint32_t*)spts,
-      (int32_t*)edig, (uint32_t*)ept, T, L);
+__global__ void __launch_bounds__(ACCUM_BLOCK)
+msm_accum_kernel(const int32_t* __restrict__ sdig,
+                 const int32_t* __restrict__ ssgn,
+                 const int32_t* __restrict__ order,
+                 const uint4* __restrict__ table, int32_t* __restrict__ edig,
+                 uint32_t* __restrict__ ept, int nwin, int T, int L) {
+  constexpr int PW = 3 * F::WORDS;
+  const int nlb = (L + ACCUM_BLOCK - 1) / ACCUM_BLOCK;
+  const int win = blockIdx.x % nwin;
+  const int lane =
+      (nlb - 1 - (int)blockIdx.x / nwin) * ACCUM_BLOCK + threadIdx.x;
+  if (lane >= L) return;
+  const size_t in = ((size_t)win * L + lane) * T;
+  const int32_t* dig = sdig + in;
+  const int32_t* sgn = ssgn + in;
+  const int32_t* ord = order + in;
+  int32_t* eo = edig + (size_t)win * (T + 1) * L + lane;
+  uint32_t* po = ept + (size_t)win * (T + 1) * PW * L + lane;
+
+  // Step t adds entry t, loads entry t + 1's point (its row read at step
+  // t - 1) and entry t + 2's digit, sign and row: no load is waited for
+  // inside the step that issues it.
+  Proj<F> acc = proj_infinity<F>();
+  int32_t ad = 0;
+  int32_t d = dig[0], s = sgn[0];
+  Affine<F> q;
+  if (d != 0) q = load_row<F>(table, ord[0]);
+  int32_t dn = 0, sn = 0, on = 0;
+  if (T > 1) {
+    dn = dig[1];
+    sn = sgn[1];
+    on = ord[1];
+  }
+  for (int t = 0; t < T; ++t) {
+    int32_t dnn = 0, snn = 0, onn = 0;
+    if (t + 2 < T) {
+      dnn = dig[t + 2];
+      snn = sgn[t + 2];
+      onn = ord[t + 2];
+    }
+    Affine<F> qn;
+    if (dn != 0) qn = load_row<F>(table, on);
+    if (d != 0 && s != 0) q.y = F::neg(q.y);
+    if (d == ad) {
+      eo[(size_t)t * L] = 0;
+      if (d != 0) acc = rcb_add_mixed<F>(acc, q.x, q.y);
+    } else {
+      eo[(size_t)t * L] = ad;
+      if (ad != 0) store_proj<F>(po + (size_t)t * PW * L, L, acc);
+      acc = {q.x, q.y, F::one()};
+      ad = d;
+    }
+    d = dn;
+    s = sn;
+    q = qn;
+    dn = dnn;
+    sn = snn;
+    on = onn;
+  }
+  eo[(size_t)T * L] = ad;
+  store_proj<F>(po + (size_t)T * PW * L, L, acc);
+}
+
+template <class F>
+int launch_accum(const void* sdig, const void* ssgn, const void* order,
+                 const void* words, void* edig, void* ept, int nwin, int T,
+                 int L, void* stream) {
+  const int nlb = (L + ACCUM_BLOCK - 1) / ACCUM_BLOCK;
+  msm_accum_kernel<F><<<nlb * nwin, ACCUM_BLOCK, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)sdig, (const int32_t*)ssgn, (const int32_t*)order,
+      (const uint4*)words, (int32_t*)edig, (uint32_t*)ept, nwin, T, L);
   return (int)cudaGetLastError();
+}
+
+template <class F>
+int blocks_per_sm() {
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, msm_accum_kernel<F>, ACCUM_BLOCK, 0) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 }  // namespace inf
 
-// sdig, ssgn: (nwin, T, L) int32; spts: (nwin, T, 2W, L) words;
-// edig: (nwin, T+1, L) int32; ept: (nwin, T+1, 3W, L) words.
+// sdig, ssgn, order: (nwin, L, T) int32, lane l's sorted entries at
+// l * T + t; words: (L * T, 2W) words, 16-byte aligned; edig: (nwin, T+1,
+// L) int32; ept: (nwin, T+1, 3W, L) words.
 extern "C" int inf_msm_accum_g1(const void* sdig, const void* ssgn,
-                                const void* spts, void* edig, void* ept,
-                                int nwin, int T, int L, void* stream) {
-  return inf::launch_accum<inf::Fq>(sdig, ssgn, spts, edig, ept, nwin, T, L,
-                                    stream);
+                                const void* order, const void* words,
+                                void* edig, void* ept, int nwin, int T, int L,
+                                void* stream) {
+  return inf::launch_accum<inf::FqOutOfLine>(sdig, ssgn, order, words, edig,
+                                             ept, nwin, T, L, stream);
 }
 
 extern "C" int inf_msm_accum_g2(const void* sdig, const void* ssgn,
-                                const void* spts, void* edig, void* ept,
-                                int nwin, int T, int L, void* stream) {
-  return inf::launch_accum<inf::Fq2>(sdig, ssgn, spts, edig, ept, nwin, T, L,
-                                     stream);
+                                const void* order, const void* words,
+                                void* edig, void* ept, int nwin, int T, int L,
+                                void* stream) {
+  return inf::launch_accum<inf::Fq2OutOfLine>(sdig, ssgn, order, words, edig,
+                                              ept, nwin, T, L, stream);
+}
+
+// resident blocks of ACCUM_BLOCK threads an SM, or -1 on an error
+extern "C" int inf_msm_accum_blocks_per_sm_g1() {
+  return inf::blocks_per_sm<inf::FqOutOfLine>();
+}
+
+extern "C" int inf_msm_accum_blocks_per_sm_g2() {
+  return inf::blocks_per_sm<inf::Fq2OutOfLine>();
 }

@@ -34,6 +34,7 @@
 // least 132 blocks at the main path's shapes.
 // The complete add stays one out-of-line function: inlined at its call
 // sites, the G2 instance made nvcc crash (segmentation fault) on sm_90a.
+// G2 runs over field.cuh's Fq2OutOfLine, the Fq2 product out of line.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
@@ -48,19 +49,6 @@ template <class F>
 __device__ __noinline__ Proj<F> add(const Proj<F>& p, const Proj<F>& q) {
   return rcb_add<F>(p, q);
 }
-
-// Fq2 with its product out of line. With the product inlined at its 12
-// sites, the G2 complete add holds 255 registers and spills
-// (--resource-usage).
-__device__ __noinline__ Fq2::E fq2_mul(const Fq2::E& a, const Fq2::E& b) {
-  return Fq2::mul(a, b);
-}
-
-struct Fq2OutOfLine : Fq2 {
-  static __device__ __forceinline__ E mul(const E& a, const E& b) {
-    return fq2_mul(a, b);
-  }
-};
 
 // a + g * s for g >= 0, by double-and-add from g's top bit: the gaps of the
 // walk, mostly 1

@@ -59,8 +59,8 @@ class Kernel:
 
 
 KERNELS = {
-    "msm_accum_g1": Kernel("inf_msm_accum_g1", 5, 3),
-    "msm_accum_g2": Kernel("inf_msm_accum_g2", 5, 3),
+    "msm_accum_g1": Kernel("inf_msm_accum_g1", 6, 3),
+    "msm_accum_g2": Kernel("inf_msm_accum_g2", 6, 3),
     "msm_weighted_g1": Kernel("inf_msm_weighted_g1", 4, 2),
     "msm_weighted_g2": Kernel("inf_msm_weighted_g2", 4, 2),
     "poseidon_perm": Kernel("inf_poseidon_perm", 4, 3),
@@ -162,3 +162,14 @@ def library():
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def accum_blocks_per_sm(curve: str) -> int:
+    """Resident blocks an SM of the accumulation kernel's instance for
+    `curve` on the current card (CUDA's occupancy calculator)."""
+    fn = getattr(library(), f"inf_msm_accum_blocks_per_sm_{curve}")
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    n = fn()
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed for msm_accum_{curve}")
+    return n

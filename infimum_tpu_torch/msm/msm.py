@@ -4,10 +4,12 @@ Counterpart of `infimum_tpu/msm/pallas_msm.py:403-553`. Per window, with
 all windows batched into one launch of each kernel:
 
   1. torch (`lane_layout`): signed c-bit recode of the scalars, a batched
-     per-window sort by |digit|, the gather of the points into the
-     limb-major lane layout [window][t][word][lane]; lane l owns the sorted
-     range [l*T, (l+1)*T).
+     per-window sort by |digit| and the gather of the signs; lane l owns
+     the sorted range [l*T, (l+1)*T). No copy of the points is made.
   2. kernel `msm_accum` (csrc/msm_accum.cu): run-emission accumulation.
+     It reads each entry's affine point from the row-major (N, AW) table
+     through the sort's order. Its emissions are the reference's: (nwin,
+     T+1, L) digits and (nwin, T+1, PW, L) points, lane l's runs in order.
   3. torch: compaction. The sorted order bounds the live emissions per
      window by n_buckets + L + 2, so a flag / cumsum / scatter packs them,
      lane by lane: each window's list is then non-decreasing in digit.
@@ -43,7 +45,10 @@ LANES_MAX = {"g1": 4096, "g2": 2048}
 
 
 class CurveSpec:
-    """Static parameters binding the pipeline to G1 or G2."""
+    """Static parameters binding the pipeline to G1 or G2. An affine point
+    is AF 16-bit limbs or AW 32-bit words, x then y: one row of the table
+    the accumulation kernel reads; a projective point (an emission, a
+    window sum) is PR limbs or PW words, X, Y, Z."""
 
     def __init__(self, name: str, c_bits: int, chunk: int):
         self.name = name
@@ -54,7 +59,7 @@ class CurveSpec:
         self.n_windows = -(-254 // c_bits)
         self.RF = NLIMBS * (2 if name == "g2" else 1)  # 16-bit limbs per coord
         self.AF, self.PR = 2 * self.RF, 3 * self.RF
-        self.AW, self.PW = self.AF // 2, self.PR // 2    # 32-bit words
+        self.AW, self.PW = self.AF // 2, self.PR // 2
 
 
 G1_SPEC = CurveSpec("g1", 13, 8)      # 20 windows
@@ -92,21 +97,22 @@ def recode(sc: torch.Tensor, spec: CurveSpec):
 
     Raw c-bit digit plus carry-in d in [0, 2^c]; d > 2^(c-1) becomes
     digit d - 2^c with carry-out 1, kept as (magnitude 2^c - d, sign 1).
-    r < 2^254, so the top window never carries out."""
+    r < 2^254, so the top window never carries out. All windows at once,
+    by carry lookahead: a window whose raw digit is above 2^(c-1) carries
+    out whatever comes in, one below never does, one equal to it passes
+    its carry-in on; so a window carries out when the nearest window at or
+    below it that is not equal to 2^(c-1) is above it."""
     c, half = spec.c_bits, spec.n_buckets
-    sc = tnf.pad(sc, (0, 1))
-    carry = torch.zeros(sc.shape[0], dtype=torch.int64, device=sc.device)
-    mags, sgns = [], []
-    for w in range(spec.n_windows):
-        limb, sh = divmod(c * w, 16)
-        comb = sc[:, limb] | (sc[:, limb + 1] << 16)
-        d = ((comb >> sh) & ((1 << c) - 1)) + carry
-        neg = d > half
-        mags.append(torch.where(neg, 2 * half - d, d))
-        sgns.append(neg)
-        carry = neg.to(torch.int64)
-    return (torch.stack(mags).to(torch.int32),
-            torch.stack(sgns).to(torch.int32))
+    w = torch.arange(spec.n_windows, device=sc.device)
+    limbs = tnf.pad(sc, (0, 1)).T.contiguous()              # (17, N)
+    comb = limbs[(c * w) // 16] | (limbs[(c * w) // 16 + 1] << 16)
+    raw = (comb >> ((c * w) % 16)[:, None]) & ((1 << c) - 1)  # (nwin, N)
+    last = torch.where(raw != half, w[:, None], -1).cummax(0).values
+    cout = (raw > half).gather(0, last.clamp(min=0)) & (last >= 0)
+    d = raw + tnf.pad(cout[:-1].to(torch.int64), (0, 0, 1, 0))
+    neg = d > half
+    return (torch.where(neg, 2 * half - d, d).to(torch.int32),
+            neg.to(torch.int32))
 
 
 # -- kernel 1: run-emission accumulation --------------------------------------------
@@ -117,44 +123,53 @@ def _check(t: torch.Tensor, shape, name: str):
                          f"{t.dtype} {tuple(t.shape)}")
 
 
-def accumulate(sdig, ssgn, spts, spec: CurveSpec):
-    """sdig, ssgn (nwin, T, L) int32; spts (nwin, T, AW, L) int32 words ->
+ACCUM_BLOCK = 32            # lanes a block, = msm_accum.cu ACCUM_BLOCK
+
+
+def accumulate(sdig, ssgn, order, words, spec: CurveSpec):
+    """sdig, ssgn, order (nwin, L, T) int32: each window's |digit|-sorted
+    digits, their signs and the table row of each, lane l owning sorted
+    entries [l*T, (l+1)*T); words (L*T, AW) int32: the affine points ->
     edig (nwin, T+1, L) int32, ept (nwin, T+1, PW, L) int32 words.
 
     Emission t < T is the run that ended before entry t (digit 0: none or
     dead); emission T is each lane's final run. Dead emissions' points are
     unspecified."""
-    if spts.device.type == "cuda":
-        nwin, T, AW, L = spts.shape
-        _check(sdig, (nwin, T, L), "sdig")
-        _check(ssgn, (nwin, T, L), "ssgn")
-        _check(spts, (nwin, T, spec.AW, L), "spts")
+    if words.device.type == "cuda":
+        nwin, L, T = sdig.shape
+        for t, name in ((sdig, "sdig"), (ssgn, "ssgn"), (order, "order")):
+            _check(t, (nwin, L, T), name)
+        _check(words, (L * T, spec.AW), "words")
+        if words.data_ptr() % 16:
+            raise ValueError("words: the kernel reads 16-byte vectors")
         edig = torch.empty((nwin, T + 1, L), dtype=torch.int32,
-                           device=spts.device)
+                           device=words.device)
         ept = torch.empty((nwin, T + 1, spec.PW, L), dtype=torch.int32,
-                          device=spts.device)
+                          device=words.device)
         kernels.KERNELS[f"msm_accum_{spec.name}"](
-            sdig, ssgn, spts, edig, ept, nwin, T, L)
+            sdig, ssgn, order, words, edig, ept, nwin, T, L)
         return edig, ept
-    if spts.device.type != "cpu":
-        raise ValueError(f"no msm_accum kernel for {spts.device}")
-    return accumulate_plain(sdig, ssgn, spts, spec)
+    if words.device.type != "cpu":
+        raise ValueError(f"no msm_accum kernel for {words.device}")
+    return accumulate_plain(sdig, ssgn, order, words, spec)
 
 
-def accumulate_plain(sdig, ssgn, spts, spec: CurveSpec):
-    """Plain torch version of the accumulation kernel."""
+def accumulate_plain(sdig, ssgn, order, words, spec: CurveSpec):
+    """Plain torch version of the accumulation kernel, the same gather:
+    each entry's point is the table row its order names."""
     curve, F = spec.curve, spec.curve.F
-    nwin, T, _, L = spts.shape
-    dev = spts.device
-    pts = _words_point(spts.transpose(2, 3), spec, 2)  # (nwin, T, L, field)
+    nwin, L, T = sdig.shape
+    dev = words.device
+    rows = words[order.to(torch.int64)].transpose(1, 2)  # (nwin, T, L, AW)
+    pts = _words_point(rows, spec, 2)                     # (nwin, T, L, field)
     acc = curve.infinity((nwin, L), dev)
     one = curve.one((nwin, L), dev)
     ad = torch.zeros((nwin, L), dtype=torch.int64, device=dev)
     edig, ept = [], []
     for t in range(T):
-        d = sdig[:, t].to(torch.int64)
+        d = sdig[:, :, t].to(torch.int64)
         px, py = pts[0][:, t], pts[1][:, t]
-        py = F.select(ssgn[:, t] != 0, F.neg(py), py)
+        py = F.select(ssgn[:, :, t] != 0, F.neg(py), py)
         summed = curve.add_mixed(acc, (px, py))
         same = d == ad
         edig.append(torch.where(same, 0, ad))
@@ -297,21 +312,21 @@ def weighted_sum_plain(cdig, cpts, spec: CurveSpec):
 # -- orchestration ------------------------------------------------------------------
 
 def lane_layout(rows, sc, lanes: int, spec: CurveSpec):
-    """Recode, sort each window by |digit| and gather the points: the
-    accumulation kernel's inputs (sdig, ssgn, spts) for rows (N, AF) and
-    scalars (N, 16), N = T * lanes; lane l owns sorted entries
-    [l*T, (l+1)*T)."""
+    """Recode and sort each window by |digit|: the accumulation kernel's
+    inputs (sdig, ssgn, order, words) for rows (N, AF) and scalars (N, 16),
+    N = T * lanes. sdig, ssgn and order are (nwin, L, T) views of the
+    sort's (nwin, N) results, lane l owning sorted entries [l*T, (l+1)*T);
+    words is the (N, AW) table of the points, which the kernel reads
+    through order."""
     N = rows.shape[0]
     if N % lanes or sc.shape[0] != N:
         raise ValueError(f"{N} rows do not fill {lanes} lanes")
-    T, L, nwin = N // lanes, lanes, spec.n_windows
+    shape = (spec.n_windows, lanes, N // lanes)
     mags, sgns = recode(sc, spec)
     sdig, order = torch.sort(mags, dim=1)
     ssgn = sgns.gather(1, order)
-    spts = limbs_to_words(rows)[order]                 # (nwin, N, AW)
-    return (sdig.view(nwin, L, T).transpose(1, 2).contiguous(),
-            ssgn.view(nwin, L, T).transpose(1, 2).contiguous(),
-            spts.view(nwin, L, T, spec.AW).permute(0, 2, 3, 1).contiguous())
+    return (sdig.view(shape), ssgn.view(shape),
+            order.to(torch.int32).view(shape), limbs_to_words(rows))
 
 
 def msm_rows_async(rows, sc, lanes: int, curve: str = "g1") -> torch.Tensor:

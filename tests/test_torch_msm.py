@@ -82,7 +82,9 @@ def test_limb_word_roundtrip():
 @pytest.mark.parametrize("curve", ["g1", "g2"])
 def test_recode_reconstructs_scalar(curve):
     spec = M.SPECS[curve]
-    scs = [0, 1, FR_MOD - 1, spec.n_buckets, spec.n_buckets + 1] \
+    c, half = spec.c_bits, spec.n_buckets
+    carried = (half + 1) + (half << c) + (half << 2 * c)   # carry passes on
+    scs = [0, 1, FR_MOD - 1, half, half + 1, carried, carried << 5 * c] \
         + _ints(4, 11)
     mags, sgns = M.recode(M.ints_to_tensor(scs, "cpu"), spec)
     for i, s in enumerate(scs):
@@ -159,6 +161,78 @@ def test_emissions_compact_within_bound(curve):
         assert (got[1:] >= got[:-1]).all()
         assert torch.equal(got.sort().values, live.sort().values)
         assert not cdig[w, live.numel():].any()
+
+
+def _gather_case(case):
+    """One edge case of the accumulation's gather: (windows, lanes), each
+    window a list of L*T sorted (digit, negative, table row) entries over a
+    table of 4 points and 12 zero padding rows."""
+    L, T = 4, 4
+    pad = list(range(4, 16))                   # the zero padding rows
+    zeros = [(0, False, r) for r in pad]
+    if case == "all_zero":
+        return [[(0, False, r) for r in range(16)]], L
+    if case == "one_live_lane":               # lanes 0-2 zero, lane 3 live
+        return [zeros + [(2, False, 0), (2, True, 1), (5, False, 2),
+                         (9, True, 3)]], L
+    if case == "run_across_lanes":            # digit 4 runs from lane 1 into 2
+        live = [(1, False, 0), (3, True, 1)] + [
+            (4, i % 2 == 1, i % 4) for i in range(7)] + [
+            (6, False, 2), (6, True, 3), (7, False, 1)]
+        return [[(0, False, 4), (0, False, 5), (0, False, 6),
+                 (0, False, 7)] + live], L
+    if case == "repeated_point":              # P + P through the mixed add
+        return [zeros[:10] + [(3, False, 1), (3, False, 1), (3, False, 2),
+                              (8, True, 0), (8, True, 0), (8, True, 0)]], L
+    if case == "cancel":                      # P and -P in one bucket
+        return [zeros[:11] + [(5, False, 2), (5, True, 2), (6, False, 0),
+                              (6, True, 0), (7, True, 3)],
+                zeros[:12] + [(2, False, 1), (2, True, 1), (2, False, 1),
+                              (2, True, 1)]], L
+    if case == "padding_rows":                # order reaches the padding rows
+        return [[(0, False, r) for r in reversed(pad)] + [
+            (1, False, 3), (1, False, 0), (2, True, 1), (2, False, 2)],
+                zeros[:8] + [(d, d % 3 == 0, d % 4) for d in range(1, 9)]], L
+    raise ValueError(case)
+
+
+GATHER_CASES = ["all_zero", "one_live_lane", "run_across_lanes",
+                "repeated_point", "cancel", "padding_rows"]
+
+
+@pytest.mark.parametrize("case", GATHER_CASES)
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_accumulate_gather_matches_host(curve, case):
+    """The accumulation's plain version, reading each entry's point from
+    the row-major table through `order`, then compaction and the weighted
+    reduction: each window against a host sum of digit * (+-P)."""
+    spec = M.SPECS[curve]
+    _, mul, add = CURVES[curve]
+    windows, L = _gather_case(case)
+    pts = _points(curve, 61, 4)
+    rows = M.encode_rows(pts, 16, curve)            # 4 points, 12 zero rows
+    assert rows.shape[0] == 16 and not rows[4:].any()
+    T = 16 // L
+
+    def field(i):
+        return torch.tensor([[e[i] for e in w] for w in windows],
+                            dtype=torch.int32).view(len(windows), L, T)
+
+    sdig, ssgn, order = field(0), field(1), field(2)
+    edig, ept = M.accumulate(sdig, ssgn, order, M.limbs_to_words(rows), spec)
+    assert edig.shape == (len(windows), T + 1, L)
+    cdig, cpts = M.compact(edig, ept, spec.n_buckets + L + 2)
+    got = M.decode_windows(M.words_to_limbs(
+        M.weighted_sum_plain(cdig, cpts, spec)), curve)
+    for w, entries in enumerate(windows):
+        assert [d for d, _, _ in entries] == sorted(d for d, _, _ in entries)
+        want = None
+        for d, neg, r in entries:
+            if d:
+                want = add(want, mul(NEG[curve](pts[r]) if neg else pts[r], d))
+        assert got[w] == want, w
+    if case in ("all_zero", "cancel"):
+        assert got[-1] is None
 
 
 def _window_inputs(curve, windows, K):
@@ -254,6 +328,14 @@ def test_weighted_chunk_matches_kernel(curve):
     assert int(chunk.group(1)) == M.SPECS[curve].chunk
 
 
+def test_accum_block_matches_kernel():
+    """The block size the smoke's grid count uses is the kernel's."""
+    src = (pathlib.Path(M.__file__).parents[1] / "csrc"
+           / "msm_accum.cu").read_text()
+    block = re.search(r"constexpr int ACCUM_BLOCK = (\d+);", src)
+    assert int(block.group(1)) == M.ACCUM_BLOCK
+
+
 @pytest.mark.parametrize("curve", ["g1", "g2"])
 def test_weighted_adds_count(curve):
     """`chip_smoke.weighted_adds` counts the chunk walks' adds as a walk
@@ -318,3 +400,30 @@ def test_kernels_match_plain_on_card(cuda_device, curve):
     want = msm_host_fast(pts, scs, curve)
     assert M.combine_window_points(kw, curve) == want
     assert M.combine_window_points(pw, curve) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_accumulate_kernel_multi_wave_on_card(cuda_device, curve):
+    """The accumulation kernel against its plain version at 2^15 points and
+    the curve's most lanes, a grid of more blocks than the card holds at
+    once: equal emitted digits, and equal limbs after compaction."""
+    from infimum_tpu_torch import kernels
+
+    spec = M.SPECS[curve]
+    n, lanes = 1 << 15, M.LANES_MAX[curve]
+    pts = _points(curve, 71, 64) * (n // 64)
+    rows, sc = M.encode_inputs(pts, _ints(72, n), lanes, curve, cuda_device)
+    args = M.lane_layout(rows, sc, lanes, spec)
+    ked, kep = M.accumulate(*args, spec)
+    ped, pep = M.accumulate_plain(*args, spec)
+    assert torch.equal(ked, ped)
+    K = spec.n_buckets + lanes + 2
+    kd, kp = M.compact(ked, kep, K)
+    pd, pp = M.compact(ped, pep, K)
+    assert torch.equal(kd, pd)
+    assert torch.equal(kp, pp)
+    blocks = spec.n_windows * lanes // M.ACCUM_BLOCK
+    resident = kernels.accum_blocks_per_sm(curve) * \
+        torch.cuda.get_device_properties(0).multi_processor_count
+    assert blocks > resident
