@@ -74,10 +74,11 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_MULS_PER_CLOCK_SM = 64
 MULS_PER_MONT = 264
 # Fq products per complete add (RCB Alg. 7) and per mixed add (Alg. 8): an
-# Fq2 product is 3 Fq products, the G2 3b product 4 (b3 is two calls); the
-# G1 3b product is additions.
-ADD_MULS = {"g1": 12, "g2": 12 * 3 + 2 * 4}
-MIXED_MULS = {"g1": 11, "g2": 11 * 3 + 2 * 4}
+# Fq2 product is 3 Fq products, and so is the G2 3b product (one Fq2
+# product by the constant, Fq2OutOfLine::b3); the G1 3b product is
+# additions.
+ADD_MULS = {"g1": 12, "g2": 12 * 3 + 2 * 3}
+MIXED_MULS = {"g1": 11, "g2": 11 * 3 + 2 * 3}
 SIGNUPS, MESSAGES = 1022, 15624   # client/scale.py: the largest legal poll
 POLL_SEED, BENCH_SEED = 20260820, 20260819
 
@@ -185,14 +186,14 @@ def accum_grid(sdig, lanes: int, curve: str):
     from infimum_tpu_torch import kernels
     from infimum_tpu_torch.msm import msm as M
 
+    block, per_sm = kernels.accum_occupancy(curve)
     nwin = sdig.shape[0]
-    nlb = -(-lanes // M.ACCUM_BLOCK)
+    nlb = -(-lanes // block)
     lane_live = sdig[..., -1] > 0              # a lane's last digit is its top
-    live = tnf.pad(lane_live, (0, nlb * M.ACCUM_BLOCK - lanes)).view(
-        nwin, nlb, M.ACCUM_BLOCK).any(-1)
+    live = tnf.pad(lane_live, (0, nlb * block - lanes)).view(
+        nwin, nlb, block).any(-1)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return (nlb * nwin, int(live.sum()),
-            kernels.accum_blocks_per_sm(curve) * sms)
+    return nlb * nwin, int(live.sum()), per_sm * sms
 
 
 def kernel_vs_plain(pk, cs, witness, mul_rate):

@@ -28,13 +28,15 @@
 //  - Blocks of one warp over (lane block, window), the highest lane blocks
 //    of every window first. Sorted by |digit|, a window's low lanes hold its
 //    zero digits and finish at once: issued last, they fill the last wave
-//    instead of leaving it mostly empty. inf_msm_accum_blocks_per_sm_*
-//    reports the resident blocks (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+//    instead of leaving it mostly empty. inf_msm_accum_block and
+//    inf_msm_accum_blocks_per_sm_* report the block size and the resident
+//    blocks (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 //  - The products are out of line: G1 runs over FqOutOfLine, G2 over
 //    Fq2OutOfLine (field.cuh). Inlined, a G1 mixed add's 11 products are
 //    about 100 KB of code a step, more than the instruction cache holds:
-//    bench/mont_bench.py's chain of mixed adds runs faster at 8-16 warps
-//    an SM with one out-of-line product than with the 11 inlined.
+//    a chain of mixed adds timed on an H100 ran faster at 8-16 warps an SM
+//    with one out-of-line product than with the 11 inlined (PERF.md,
+//    section 7).
 //  - Dead emissions are not stored (their digit is 0 and the compaction
 //    drops them), and zero digits skip both the point's load and the add.
 //
@@ -175,6 +177,9 @@ extern "C" int inf_msm_accum_g2(const void* sdig, const void* ssgn,
   return inf::launch_accum<inf::Fq2OutOfLine>(sdig, ssgn, order, words, edig,
                                               ept, nwin, T, L, stream);
 }
+
+// threads (lanes) a block of the accumulation kernel
+extern "C" int inf_msm_accum_block() { return inf::ACCUM_BLOCK; }
 
 // resident blocks of ACCUM_BLOCK threads an SM, or -1 on an error
 extern "C" int inf_msm_accum_blocks_per_sm_g1() {

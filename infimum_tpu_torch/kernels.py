@@ -164,12 +164,16 @@ def library():
     return _lib
 
 
-def accum_blocks_per_sm(curve: str) -> int:
-    """Resident blocks an SM of the accumulation kernel's instance for
-    `curve` on the current card (CUDA's occupancy calculator)."""
-    fn = getattr(library(), f"inf_msm_accum_blocks_per_sm_{curve}")
-    fn.argtypes, fn.restype = [], ctypes.c_int
-    n = fn()
+def accum_occupancy(curve: str) -> tuple[int, int]:
+    """(threads a block, resident blocks an SM) of the accumulation
+    kernel's instance for `curve` on the current card (CUDA's occupancy
+    calculator)."""
+    lib = library()
+    block, per_sm = lib.inf_msm_accum_block, getattr(
+        lib, f"inf_msm_accum_blocks_per_sm_{curve}")
+    for fn in (block, per_sm):
+        fn.argtypes, fn.restype = [], ctypes.c_int
+    n = per_sm()
     if n < 0:
         raise RuntimeError(f"occupancy query failed for msm_accum_{curve}")
-    return n
+    return block(), n

@@ -123,9 +123,6 @@ def _check(t: torch.Tensor, shape, name: str):
                          f"{t.dtype} {tuple(t.shape)}")
 
 
-ACCUM_BLOCK = 32            # lanes a block, = msm_accum.cu ACCUM_BLOCK
-
-
 def accumulate(sdig, ssgn, order, words, spec: CurveSpec):
     """sdig, ssgn, order (nwin, L, T) int32: each window's |digit|-sorted
     digits, their signs and the table row of each, lane l owning sorted

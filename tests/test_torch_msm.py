@@ -328,12 +328,41 @@ def test_weighted_chunk_matches_kernel(curve):
     assert int(chunk.group(1)) == M.SPECS[curve].chunk
 
 
-def test_accum_block_matches_kernel():
-    """The block size the smoke's grid count uses is the kernel's."""
+def _cuda_body(src: str, head: str) -> str:
+    """The body of the first definition in `src` whose text starts with
+    `head`, up to its matching brace."""
+    start = src.index("{", src.index(head))
+    depth = 0
+    for i in range(start, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[i], 0)
+        if depth == 0:
+            return src[start:i + 1]
+    raise ValueError(head)
+
+
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+@pytest.mark.parametrize("formula,table", [("rcb_add", "ADD_MULS"),
+                                           ("rcb_add_mixed", "MIXED_MULS")])
+def test_bound_counts_kernel_products(formula, table, curve):
+    """The Fq products a complete or mixed add costs in the smoke's bound
+    are those of `field.cuh`: its F::mul and F::b3 calls, each F::mul one
+    Fq product over Fq and Fq2's Karatsuba 3 over Fq2, each F::b3 additions
+    over Fq and one Fq2 product by the constant over Fq2."""
+    import chip_smoke
+
     src = (pathlib.Path(M.__file__).parents[1] / "csrc"
-           / "msm_accum.cu").read_text()
-    block = re.search(r"constexpr int ACCUM_BLOCK = (\d+);", src)
-    assert int(block.group(1)) == M.ACCUM_BLOCK
+           / "field.cuh").read_text()
+    assert _cuda_body(src, "// Karatsuba: 3 Fq products").count(
+        "Fq::mul(") == 3
+    fp_b3 = _cuda_body(src, "// 9x = 3b * x for G1")
+    assert "mul(" not in fp_b3
+    fq2_b3 = _cuda_body(src[src.index("struct Fq2OutOfLine"):],
+                        "static __device__ __forceinline__ E b3(")
+    assert fq2_b3.count("mul(") == 1
+    body = _cuda_body(src, f"__device__ __forceinline__ Proj<F> {formula}(")
+    muls, b3s = body.count("F::mul("), body.count("F::b3(")
+    want = muls if curve == "g1" else 3 * muls + 3 * b3s
+    assert getattr(chip_smoke, table)[curve] == want
 
 
 @pytest.mark.parametrize("curve", ["g1", "g2"])
@@ -423,7 +452,7 @@ def test_accumulate_kernel_multi_wave_on_card(cuda_device, curve):
     pd, pp = M.compact(ped, pep, K)
     assert torch.equal(kd, pd)
     assert torch.equal(kp, pp)
-    blocks = spec.n_windows * lanes // M.ACCUM_BLOCK
-    resident = kernels.accum_blocks_per_sm(curve) * \
-        torch.cuda.get_device_properties(0).multi_processor_count
+    block, per_sm = kernels.accum_occupancy(curve)
+    blocks = spec.n_windows * lanes // block
+    resident = per_sm * torch.cuda.get_device_properties(0).multi_processor_count
     assert blocks > resident
