@@ -7,8 +7,10 @@ Phases, in order; any failure raises and exits nonzero:
   2. build: the CUDA kernels from infimum_tpu_torch/csrc/ (nvcc, sm_90a);
   3. e2e: the reference-dims poll, ProcessMessages(10,2,1,2) and
      TallyVotes(10,1,2): setup on the card, the poll lifecycle, all six
-     batches proved through infimum_tpu_torch, each verified by the native
-     pairing against the poll's own public inputs, outcome option 5;
+     batches proved through infimum_tpu_torch, each self-verified by the
+     native pairing (timed apart from its prove, as the reference e2e
+     times it) and checked against the poll's own public inputs, outcome
+     option 5;
   4. kernels at the first process proof's shapes: at each of its five
      MSMs (`a`, `b1`, `l`, `h` over G1, `b2` over G2) the layout stage and
      the accumulation kernel timed, with the mixed adds, the bound, the
@@ -27,11 +29,14 @@ Phases, in order; any failure raises and exits nonzero:
      message leaves in the quinary depth-6 message tree, every leaf batch
      hashed by the Poseidon kernel and both trees built level by level
      through it, leaves and roots equal to the native library's and every
-     launch's permuted state equal to the plain version's; (b) the
-     benchmark's batch, 2^16 width-5 hashes (t = 6), kernel equal to its
-     plain version and to the native library, both timed; (c) every width
-     t = 2..13 at 1,000 states against the native library; then the same
-     path checks for the Poseidon kernel in (a).
+     launch's permuted state equal to the plain version's, each launch
+     timed; (b) 2^16 states at t = 3 and 5 (the trees' widths) and 6 (the
+     benchmark's width-5 hashes), kernel equal to its plain version (and
+     at t = 6 to the native library), timed beside its bound; (c) every
+     width t = 2..13 at 1,000 states against the native library; (d) the
+     kernel's four variants at t = 6 timed in turns; (e) its registers
+     and stack per width; then the same path checks for the Poseidon
+     kernel in (a).
 The last three lines of standard output are a JSON line with each kernel's
 launches, error, times and bound, then the card's name and power limit;
 the very last line is the result: {"ok": true, "device": {...}}.
@@ -388,12 +393,16 @@ def poll_trees(native):
                 for _ in range(MESSAGES)]        # data[0..10], pkx, pky
     zeros2, zeros5 = merkle_zeros(2)[0], merkle_zeros(5)[0]
 
-    launched = []          # (input, output) words of each kernel launch
+    launched = []      # (input, output, start, end) of each kernel launch
     real_perm = H.perm_words
 
     def recording_perm(words):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         out = real_perm(words)
-        launched.append((words, out))
+        end.record()
+        launched.append((words, out, start, end))
         return out
 
     H.perm_words = recording_perm
@@ -440,7 +449,7 @@ def poll_trees(native):
         raise AssertionError(f"{len(launched)} launches recorded, "
                              f"{launches} counted")
     err, shapes = 0, []
-    for words, out in launched:
+    for words, out, start, end in launched:
         state = words_to_limbs(words.transpose(1, 2))
         kernel = words_to_limbs(out.transpose(1, 2))
         plain = H.poseidon_perm_plain(state)
@@ -448,58 +457,141 @@ def poll_trees(native):
             raise AssertionError(f"poseidon_perm: kernel and plain differ at "
                                  f"{tuple(words.shape)}")
         err = max(err, _state_err(kernel, plain))
-        shapes.append(f"{words.shape[0]}x{words.shape[2]}")
+        shapes.append(f"{words.shape[0]}x{words.shape[2]} "
+                      f"{start.elapsed_time(end):.4f} ms")
     log(f"[poseidon] poll trees: {SIGNUPS} sign-up + {3 * MESSAGES} message "
         f"hashes {t1 - t0:.3f}s, registration (2, 10) + message (5, 6) trees "
         f"{t2 - t1:.3f}s on the card, {launches} kernel launches; native "
         f"library on the host: hashes {t3 - t2:.3f}s, IMT inserts + merges "
         f"{t4 - t3:.3f}s; leaves and both roots equal native; every "
-        f"launch's state (t x B: {', '.join(shapes)}) equals the plain "
-        f"version, max abs err {err}")
+        f"launch's state equals the plain version, max abs err {err}; each "
+        f"launch's t x B and CUDA-event time: {', '.join(shapes)}")
     return launches, err
 
 
-def bench_batch(native, mul_rate):
-    """Phase 7(b): 2^16 width-5 hashes (t = 6), kernel vs plain vs native;
-    returns (error, ms, plain ms, bound ms, bound by)."""
-    from infimum_tpu_torch.ff.bn254 import FR_MOD
-    from infimum_tpu_torch.ff.fp import FR_CTX, limbs_to_words
+def perm_bound(t: int, b: int, words, out, mul_rate):
+    """(bound ms, bound by, Fr products a state, bound ms by those
+    products) of `b` permutations of width t. The least work is the sparse
+    form of the Poseidon paper's App. B (circomlib's poseidon.circom), 3
+    products per S-box; a full round t S-boxes and a dense t x t product, a
+    partial round one S-box and a sparse product (first row and first
+    column, 2t - 1); the dense pre-matrix takes the place of the MDS in the
+    fourth round. Its 32-bit multiplies: a matrix row's t products summed
+    with one Montgomery reduction (128 t + 136, as the kernel sums them),
+    every other product 264. The bytes are the states in and out and the
+    kernel's tables."""
     from infimum_tpu_torch.hash import poseidon as H
     from infimum_tpu_torch.hash.grain import FULL_ROUNDS, PARTIAL_ROUNDS
 
-    b, width = 1 << 16, 5
-    t = width + 1
+    r_p = PARTIAL_ROUNDS[t - 2]
+    rounds_muls = FULL_ROUNDS * (3 * t + t * t) + r_p * (3 + 2 * t - 1)
+    sums = FULL_ROUNDS * t + r_p
+    muls = (sums * (128 * t + 136)
+            + (rounds_muls - sums * t) * MULS_PER_MONT)
+    moved = nbytes(words, out, *H.tables(t, "cuda", words=True))
+    least = bound(moved, b * muls / MULS_PER_MONT, mul_rate)
+    return (*least, rounds_muls, bound(moved, b * rounds_muls, mul_rate)[0])
+
+
+def bench_batch(native, mul_rate):
+    """Phase 7(b): 2^16 permutations at t = 3, 5 (the trees' widths) and 6
+    (the benchmark's width-5 hashes), each kernel vs plain and timed beside
+    its bound, t = 6 also vs native; returns t = 6's (error, ms, plain ms,
+    bound ms, bound by)."""
+    from infimum_tpu_torch.ff.bn254 import FR_MOD
+    from infimum_tpu_torch.ff.fp import FR_CTX, limbs_to_words
+    from infimum_tpu_torch.hash import poseidon as H
+
+    b = 1 << 16
     rng = random.Random(BENCH_SEED)
-    cols = [[rng.randrange(FR_MOD) for _ in range(b)] for _ in range(width)]
-    state = torch.cat([torch.zeros((1, b, 16), dtype=torch.int64,
-                                   device="cuda"),
-                       torch.stack([FR_CTX.encode(c, "cuda") for c in cols])])
-    words = limbs_to_words(state).transpose(1, 2).contiguous()
-    ms, out_words = cuda_ms(lambda: H.perm_words(words), 10, warm=1)
-    plain_ms, plain = cuda_ms(lambda: H.poseidon_perm_plain(state), 1)
-    kernel = H.poseidon_perm(state)
-    if not torch.equal(kernel, plain):
-        raise AssertionError("poseidon_perm: kernel and plain differ")
-    err = _state_err(kernel, plain)
-    hashes = FR_CTX.decode(kernel[0])
-    _equal("2^16 w5 batch", hashes, native.poseidon_batch(
-        [list(r) for r in zip(*cols)], width))
-    # the least work of the permutation: the sparse form of the Poseidon
-    # paper's App. B (circomlib's poseidon.circom), 3 products per S-box;
-    # a full round t S-boxes and a dense t x t MDS product, a partial round
-    # one S-box and a sparse product (first row and first column, 2t - 1);
-    # the dense pre-matrix takes the place of the MDS in the fourth round
-    rounds_muls = (FULL_ROUNDS * (3 * t + t * t)
-                   + PARTIAL_ROUNDS[t - 2] * (3 + 2 * t - 1))
-    ark, mds = H.tables(t, "cuda", words=True)
-    bnd = bound(nbytes(words, out_words, ark, mds), b * rounds_muls,
-                mul_rate)
-    log(f"[poseidon] 2^16 w5 batch: kernel {ms:.3f} ms "
-        f"({b / ms * 1e3:.1f} hashes/s), plain {plain_ms:.3f} ms, bound "
-        f"{bnd[0]:.3f} ms ({bnd[1]}, {rounds_muls} Fr products a hash); "
-        f"kernel == plain on all {b} lanes (max abs err {err}), == native; "
-        f"card {card_line()}")
-    return (err, ms, plain_ms, *bnd)
+    for t in (3, 5, 6):
+        cols = [[rng.randrange(FR_MOD) for _ in range(b)]
+                for _ in range(t - 1)]
+        state = torch.cat([torch.zeros((1, b, 16), dtype=torch.int64,
+                                       device="cuda"),
+                           torch.stack([FR_CTX.encode(c, "cuda")
+                                        for c in cols])])
+        words = limbs_to_words(state).transpose(1, 2).contiguous()
+        ms, out_words = cuda_ms(lambda: H.perm_words(words), 10, warm=1)
+        plain_ms, plain = cuda_ms(lambda: H.poseidon_perm_plain(state), 1)
+        kernel = H.poseidon_perm(state)
+        if not torch.equal(kernel, plain):
+            raise AssertionError(f"poseidon_perm: kernel and plain differ at "
+                                 f"t = {t}")
+        err = _state_err(kernel, plain)
+        bnd_ms, bnd_by, muls, prod_ms = perm_bound(t, b, words, out_words,
+                                                   mul_rate)
+        if t == 6:
+            _equal("2^16 w5 batch", FR_CTX.decode(kernel[0]),
+                   native.poseidon_batch([list(r) for r in zip(*cols)],
+                                         t - 1))
+        log(f"[poseidon] 2^16 states, t = {t}: kernel {ms:.4f} ms "
+            f"({b / ms * 1e3:.1f} permutations/s), plain {plain_ms:.3f} ms,"
+            f" bound {bnd_ms:.4f} ms ({bnd_by}; {muls} Fr products a "
+            f"state, each row's sum reduced once), {bnd_ms / ms:.1%} of "
+            f"bound; {prod_ms:.4f} ms at 264 multiplies a product, "
+            f"{prod_ms / ms:.1%} of it; kernel == plain on all "
+            f"{b} lanes (max abs err {err})"
+            + (", == native" if t == 6 else "") + f"; card {card_line()}")
+        if t == 6:
+            row = (err, ms, plain_ms, bnd_ms, bnd_by)
+            perm_variants(words, out_words)
+    return row
+
+
+def perm_variants(words, want) -> None:
+    """Phase 7(d): the kernel's variants at t = 6 (product inlined or out
+    of line, tables through __ldg or in shared memory, and each matrix row
+    summed as t reduced products) on the same 2^16 states, in turns, each
+    equal to the main instance."""
+    from infimum_tpu_torch import kernels
+    from infimum_tpu_torch.hash import poseidon as H
+
+    times = {name: [] for name in H.VARIANTS}
+    for name in [*H.VARIANTS, *reversed(H.VARIANTS)]:
+        ms, out = cuda_ms(lambda: H.perm_words(words, H.VARIANTS[name]), 10,
+                          warm=1)
+        if not torch.equal(out, want):
+            raise AssertionError(f"poseidon_perm variant {name} differs")
+        times[name].append(ms)
+    main = kernels.perm_main_variant()
+    log("[poseidon] variants at 2^16 states, t = 6 (ms, in turns; all "
+        "equal the main instance): " + "; ".join(
+            f"{name}{' (main)' if H.VARIANTS[name] == main else ''} "
+            + " / ".join(f"{ms:.4f}" for ms in ts)
+            for name, ts in times.items()))
+
+
+def perm_resources() -> None:
+    """Phase 7(e): the Poseidon kernel's registers and stack per width and
+    variant, and the out-of-line product's frame, from nvcc's
+    --resource-usage report of this run's build."""
+    from infimum_tpu_torch import kernels
+
+    main = kernels.perm_main_variant()
+    found = {}                      # label -> (sort key, text)
+    for m in RESOURCES.finditer(kernels.BUILD_INFO.get("log", "")):
+        name = m.group(1)
+        width = re.search(r"poseidon_perm_kernelILi(\d+)E", name)
+        if width:
+            smem, sums = re.search(r"Lb([01])ELb([01])E", name).groups()
+            variant = (("FrOutOfLine" in name) | (smem == "1") << 1
+                       | (sums == "0") << 2)
+            label = f"t = {width.group(1)}" + (
+                "" if variant == main else f" variant {variant}")
+            found[label] = ((int(width.group(1)), variant != main, variant),
+                            f"{m.group(5)} registers, {m.group(2)} B stack, "
+                            f"{m.group(3)}/{m.group(4)} B spill stores/loads")
+        elif "FrOutOfLine" in name:
+            found["FrOutOfLine::mul"] = (
+                (0, False, 0), f"{m.group(2)} B stack, {m.group(3)}/"
+                f"{m.group(4)} B spill stores/loads")
+    if not found:
+        log("[poseidon] registers: not in this run's build log (cached)")
+        return
+    log(f"[poseidon] resources (main instance = variant {main}): " + "; ".join(
+        f"{label}: {text}" for label, (_, text) in sorted(
+            found.items(), key=lambda kv: kv[1][0])))
 
 
 def width_sweep(native) -> None:
@@ -514,6 +606,22 @@ def width_sweep(native) -> None:
         _equal(f"width {t}", poseidon_batch(cols), native.poseidon_batch(
             [list(r) for r in zip(*cols)], t - 1))
     log("[poseidon] widths t = 2..13 at 1,000 states equal native")
+
+
+def batch_times(timings: dict) -> None:
+    """Phase 3: every batch is timed as a prove and, apart, a self-verify,
+    as the reference e2e times them; prints both."""
+    proves = sorted(k for k in timings if k.startswith("prove_"))
+    if len(proves) != 6:
+        raise AssertionError(f"want 6 prove_* timings, got {proves}")
+    for k in proves:
+        v = "selfverify_" + k[len("prove_"):]
+        if v not in timings:
+            raise AssertionError(f"{k} has no {v}")
+        log(f"[e2e] {k[len('prove_'):]}: prove {timings[k]:.3f}s, "
+            f"self-verify {timings[v]:.3f}s")
+    log(f"[e2e] proof_latency_s {timings['proof_latency_s']} (witness "
+        f"inputs, witnesses and proves, no self-verify)")
 
 
 def foreign_modules() -> list[str]:
@@ -568,6 +676,7 @@ def main() -> int:
     log(f"[e2e] verifier: native pairing ({native._LIB_PATH}); witness: "
         f"{'native hint program' if witness_native else 'python hints'}")
     log(f"[e2e] kernel launches: {launches}")
+    batch_times(run.timings)
 
     # 4. kernel vs plain on the first process proof's inputs
     first = run.first_process
@@ -606,6 +715,7 @@ def main() -> int:
     err, *rest = bench_batch(native, mul_rate)
     cmp["poseidon_perm"] = (max(err, tree_err), *rest)
     width_sweep(native)
+    perm_resources()
     if launches["poseidon_perm"] == 0:
         raise AssertionError("poseidon_perm never launched in the trees")
     if foreign_modules():

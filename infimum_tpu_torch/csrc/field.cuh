@@ -12,7 +12,7 @@
 // modulus: Fq = Fp<FqParams>, Fr = Fp<FrParams>. An Fq2 element is
 // (c0, c1) with u^2 = -1, words c0[0..7] then c1[0..7]. Every function is
 // inline and straight-line over registers, but for the out-of-line
-// products of FqOutOfLine and Fq2OutOfLine.
+// products of FqOutOfLine, FrOutOfLine and Fq2OutOfLine.
 //
 // The constants below are checked against the Python values by
 // tests/test_torch_msm.py (test_field_header_constants).
@@ -68,6 +68,7 @@ INF_PTX3(mad_hi_cc, "mad.hi.cc.u32")
 INF_PTX3(madc_hi_cc, "madc.hi.cc.u32")
 INF_PTX3(madc_hi, "madc.hi.u32")
 INF_PTX2(addc, "addc.u32")
+INF_PTX2(addc_cc, "addc.cc.u32")
 INF_PTX2(sub_cc, "sub.cc.u32")
 INF_PTX2(subc_cc, "subc.cc.u32")
 INF_PTX2(subc, "subc.u32")
@@ -266,6 +267,14 @@ using Fr = Fp<FrParams>;
 // 352-byte stack frame and the kernel ran slower (PERF.md, section 6).
 struct FqOutOfLine : Fq {
   static __device__ __noinline__ E mul(E a, E b) { return Fq::mul(a, b); }
+};
+
+// Fr with its product out of line, the Poseidon kernel's product for its
+// S-boxes and columns (poseidon_perm.cu): one copy of the product's code,
+// called from every round, where inlined the kernel ran slower (PERF.md,
+// section 6).
+struct FrOutOfLine : Fr {
+  static __device__ __noinline__ E mul(E a, E b) { return Fr::mul(a, b); }
 };
 
 struct Fq2 {

@@ -9,9 +9,11 @@ reference's limb for limb.
 
 `poseidon_perm` launches the kernel `csrc/poseidon_perm.cu` for a CUDA
 tensor and raises for any other device but the CPU; for a CPU tensor it
-runs `poseidon_perm_plain`, the same rounds in plain torch on `FR_CTX` (the
-`poseidon_perm_device` algorithm). The round constants and MDS matrix come
-from the Grain LFSR (`grain.py`), cached per width and per device.
+runs `poseidon_perm_plain`, the same rounds in plain torch on `FR_CTX`.
+Both compute the optimized form of `poseidon_sparse.py` (folded constants,
+sparse partial rounds), whose tables follow from the Grain parameters
+(`grain.py`) and are cached per width and per device. The reference's
+dense form stays as `poseidon_perm_dense_plain`, for the tests.
 """
 
 from __future__ import annotations
@@ -25,12 +27,14 @@ from .. import kernels
 from ..ff.fp import FR_CTX, NLIMBS, limbs_to_words, words_to_limbs
 from ..ff.limbs import to_limbs
 from .grain import FULL_ROUNDS, MAX_WIDTH, PARTIAL_ROUNDS, poseidon_params
+from .poseidon_sparse import sparse_params
 
 
 @functools.lru_cache(maxsize=None)
 def device_params(t: int):
     """ark (rounds, t, 16), mds (t, t, 16) uint32 Montgomery limbs and the
-    (rounds,) full-round mask: the reference's `_device_params(t)`."""
+    (rounds,) full-round mask: the reference's `_device_params(t)`, the
+    tables of the dense form."""
     ark, mds = poseidon_params(t)
     r_p = PARTIAL_ROUNDS[t - 2]
     rounds = FULL_ROUNDS + r_p
@@ -46,20 +50,40 @@ def device_params(t: int):
     return ark_arr, mds_arr, full_mask
 
 
+def _mont_limbs(values, device) -> torch.Tensor:
+    """Nested lists of ints -> int64 Montgomery limbs (..., 16)."""
+    arr = np.asarray(values, dtype=object)
+    flat = FR_CTX.encode(arr.reshape(-1).tolist(), device)
+    return flat.reshape(*arr.shape, NLIMBS)
+
+
 _TABLES: dict = {}
 
 
 def tables(t: int, device, words: bool):
-    """(ark, mds) on `device`, cached per width and device: contiguous int32
-    words (rounds, t, 8) and (t, t, 8), the kernel's form, when `words`;
-    else int64 limbs (rounds, t, 16) and (t, t, 16), the plain version's."""
+    """The optimized permutation's tables (`poseidon_sparse.sparse_params`)
+    on `device`, cached per width and device: (C, M, P, S) of shapes
+    (t R_F + R_P, W), (t, t, W), (t, t, W) and (R_P, 2t - 1, W), Montgomery
+    form, each contiguous: W = 8 int32 words, the kernel's form, when
+    `words`; else W = 16 int64 limbs, the plain version's."""
     key = (t, str(torch.device(device)), words)
     if key not in _TABLES:
-        ark, mds, _ = device_params(t)
-        pair = [torch.from_numpy(x.astype(np.int64)) for x in (ark, mds)]
+        sp = sparse_params(t)
+        out = [_mont_limbs(x, "cpu") for x in (sp.c, sp.m, sp.p, sp.s)]
         if words:
-            pair = [limbs_to_words(x).contiguous() for x in pair]
-        _TABLES[key] = tuple(x.to(device) for x in pair)
+            out = [limbs_to_words(x).contiguous() for x in out]
+        _TABLES[key] = tuple(x.to(device) for x in out)
+    return _TABLES[key]
+
+
+def dense_tables(t: int, device):
+    """(ark, mds) of the dense form as int64 Montgomery limbs on `device`:
+    (rounds, t, 16) and (t, t, 16)."""
+    key = (t, str(torch.device(device)), "dense")
+    if key not in _TABLES:
+        ark, mds, _ = device_params(t)
+        _TABLES[key] = tuple(torch.from_numpy(x.astype(np.int64)).to(device)
+                             for x in (ark, mds))
     return _TABLES[key]
 
 
@@ -70,9 +94,11 @@ def _check_width(t: int):
 
 # -- the kernel -----------------------------------------------------------------
 
-def perm_words(words: torch.Tensor) -> torch.Tensor:
+def perm_words(words: torch.Tensor, variant: int | None = None
+               ) -> torch.Tensor:
     """(t, 8, B) contiguous int32 Montgomery words on a card -> the permuted
-    state, same layout: one launch of the kernel."""
+    state, same layout: one launch of the kernel. `variant` launches one of
+    the kernel's measured variants at t = 6 instead (`VARIANTS`)."""
     t, nw, b = words.shape
     _check_width(t)
     if (words.device.type != "cuda" or words.dtype != torch.int32
@@ -80,12 +106,25 @@ def perm_words(words: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"perm_words: want contiguous int32 (t, 8, B) on a "
                          f"card, got {words.dtype} {tuple(words.shape)} on "
                          f"{words.device}")
+    if variant is not None and (t != 6 or variant not in VARIANTS.values()):
+        raise ValueError(f"no kernel variant {variant} at width {t}")
     out = torch.empty_like(words)
     if b:
-        ark, mds = tables(t, words.device, words=True)
-        kernels.KERNELS["poseidon_perm"](words, out, ark, mds, t,
-                                         PARTIAL_ROUNDS[t - 2], b)
+        tabs = tables(t, words.device, words=True)
+        args = (words, out, *tabs, t, PARTIAL_ROUNDS[t - 2], b)
+        if variant is None:
+            kernels.KERNELS["poseidon_perm"](*args)
+        else:
+            kernels.KERNELS["poseidon_perm_variant"](*args, variant)
     return out
+
+
+# The kernel's variants at t = 6, for measurement (bit 0: the product out
+# of line; bit 1: the tables staged in shared memory; bit 2: each matrix
+# row as t reduced products instead of one sum reduced once).
+VARIANTS = {"inline, __ldg": 0, "out of line, __ldg": 1,
+            "inline, shared": 2, "out of line, shared": 3,
+            "out of line, shared, rows as t products": 7}
 
 
 def poseidon_perm(state: torch.Tensor) -> torch.Tensor:
@@ -106,23 +145,63 @@ def _sbox(x):
     return FR_CTX.mont_mul(x4, x)
 
 
+def _mix(mat, s):
+    """mat * s: (n, t, 16) by (t, B, 16) -> (n, B, 16), each row's t
+    products summed."""
+    prods = FR_CTX.mont_mul(mat.unsqueeze(2), s.unsqueeze(0))
+    acc = prods[:, 0]
+    for j in range(1, s.shape[0]):
+        acc = FR_CTX.add(acc, prods[:, j])
+    return acc
+
+
 def poseidon_perm_plain(state: torch.Tensor) -> torch.Tensor:
     """Plain torch version of the kernel, on (t, B, 16) Montgomery limbs:
-    per round the constants, the S-box (element 0 only in a partial round)
-    and the MDS as t^2 products summed over j."""
+    the optimized permutation of `poseidon_sparse`, its rounds and products
+    in the kernel's order (the kernel reduces each row's sum once; the
+    values are the same). A partial round is one S-box and its constant on
+    element 0, then the sparse mix: the new element 0 is the first row
+    times the state, every other element adds the first column's entry
+    times element 0."""
     t = state.shape[0]
     _check_width(t)
-    ark, mds = tables(t, state.device, words=False)
+    c, m, p, sparse = tables(t, state.device, words=False)
+    half = FULL_ROUNDS // 2
+    s = FR_CTX.add(state, c[:t].unsqueeze(1))
+    off = t
+    for r in range(FULL_ROUNDS):
+        s = _sbox(s)
+        if r < FULL_ROUNDS - 1:
+            s = FR_CTX.add(s, c[off:off + t].unsqueeze(1))
+            off += t
+        s = _mix(p if r == half - 1 else m, s)
+        if r != half - 1:
+            continue
+        for j in range(sparse.shape[0]):
+            s0 = FR_CTX.add(_sbox(s[0]), c[off + j])
+            first = _mix(sparse[j, :t].unsqueeze(0),
+                         torch.cat([s0[None], s[1:]]))
+            rest = FR_CTX.add(s[1:], FR_CTX.mont_mul(
+                sparse[j, t:].unsqueeze(1), s0))
+            s = torch.cat([first, rest])
+        off += sparse.shape[0]
+    return s
+
+
+def poseidon_perm_dense_plain(state: torch.Tensor) -> torch.Tensor:
+    """The reference's dense form in plain torch, on (t, B, 16) Montgomery
+    limbs: per round the constants, the S-box (element 0 only in a partial
+    round) and the full MDS product. It holds the optimized tables against
+    the reference's algorithm in the tests."""
+    t = state.shape[0]
+    _check_width(t)
+    ark, mds = dense_tables(t, state.device)
     full = device_params(t)[2]
     s = state
     for r in range(ark.shape[0]):
         s = FR_CTX.add(s, ark[r].unsqueeze(1))
         s = _sbox(s) if full[r] else torch.cat([_sbox(s[:1]), s[1:]])
-        prods = FR_CTX.mont_mul(mds.unsqueeze(2), s.unsqueeze(0))
-        acc = prods[:, 0]
-        for j in range(1, t):
-            acc = FR_CTX.add(acc, prods[:, j])
-        s = acc
+        s = _mix(mds, s)
     return s
 
 

@@ -11,8 +11,9 @@ C entry point launches on the stream it is given and returns
 `cudaGetLastError()`, and the wrapper raises when that is not 0.
 
 `Kernel.launches` counts the launches of one kernel instance (an MSM
-kernel for one curve, the Poseidon permutation for every width), so a run
-can show that its main path went through the kernel. Nothing here is
+kernel for one curve, the Poseidon permutation for every width; its
+measured variants apart), so a run can show that its main path went
+through the kernel. Nothing here is
 imported or built unless a CUDA tensor reaches a kernel wrapper.
 """
 
@@ -63,7 +64,8 @@ KERNELS = {
     "msm_accum_g2": Kernel("inf_msm_accum_g2", 6, 3),
     "msm_weighted_g1": Kernel("inf_msm_weighted_g1", 4, 2),
     "msm_weighted_g2": Kernel("inf_msm_weighted_g2", 4, 2),
-    "poseidon_perm": Kernel("inf_poseidon_perm", 4, 3),
+    "poseidon_perm": Kernel("inf_poseidon_perm", 6, 3),
+    "poseidon_perm_variant": Kernel("inf_poseidon_perm_variant", 6, 4),
 }
 
 # the last build of this process: {"seconds", "path", "log", "sources"}
@@ -177,3 +179,12 @@ def accum_occupancy(curve: str) -> tuple[int, int]:
     if n < 0:
         raise RuntimeError(f"occupancy query failed for msm_accum_{curve}")
     return block(), n
+
+
+def perm_main_variant() -> int:
+    """The Poseidon kernel's main instance as `inf_poseidon_perm_variant`
+    numbers its variants (bit 0: product out of line; bit 1: tables in
+    shared memory)."""
+    fn = library().inf_poseidon_perm_main_variant
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()

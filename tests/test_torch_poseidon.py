@@ -2,13 +2,16 @@
 (infimum_tpu_torch.parallel.tree) against the JAX package.
 
 Inputs are full-width field elements from numpy seeds, fed to both packages.
-On the CPU the port's wrapper runs its plain version, which is held against
-the reference's XLA permutation `poseidon_hash_device` (n_inputs 1, 2, 4,
-5), its Pallas kernel `poseidon_hash_pallas` in interpret mode (n_inputs 5,
-as tests/test_pallas.py runs it), and its host `poseidon_perm_py` at every
-width t = 2..13, t = 9 and 13 included. The port's constant tables, in the
-plain version's limb form and the kernel's word form, equal the
-reference's; its tree builder equals `host_tree_root` and
+On the CPU the port's wrapper runs its plain version, the optimized form
+(folded constants, sparse partial rounds, `hash/poseidon_sparse.py`),
+which is held against the reference's XLA permutation
+`poseidon_hash_device` (n_inputs 1, 2, 4, 5), its Pallas kernel
+`poseidon_hash_pallas` in interpret mode (n_inputs 5, as tests/test_pallas.py
+runs it), its host `poseidon_perm_py` at every width t = 2..13, t = 9 and
+13 included, the port's plain dense form, and circomlibjs's poseidon([1]).
+The dense tables equal the reference's; the optimized tables have the
+optimized form's sizes, and their limb form (the plain version's) and word
+form (the kernel's) agree. The tree builder equals `host_tree_root` and
 `sharded_tree_root` on a one-device CPU mesh. The kernel runs only on a
 card (`cuda` marker). Tolerance: exact equality throughout."""
 
@@ -29,6 +32,10 @@ from infimum_tpu.parallel.tree import host_tree_root, sharded_tree_root
 from infimum_tpu_torch.ff.bn254 import FR_MOD
 from infimum_tpu_torch.ff.fp import FR_CTX, words_to_limbs
 from infimum_tpu_torch.hash import poseidon as H
+from infimum_tpu_torch.hash.grain import (
+    FULL_ROUNDS, PARTIAL_ROUNDS, poseidon_params,
+)
+from infimum_tpu_torch.hash.poseidon_sparse import sparse_params
 from infimum_tpu_torch.parallel import tree as T
 
 torch.set_num_threads(1)  # the suite runs in parallel worker processes
@@ -82,20 +89,98 @@ def test_perm_matches_host(t):
 
 @pytest.mark.parametrize("t", WIDTHS)
 def test_tables_match_reference(t):
+    """The dense tables equal the reference's; the optimized form keeps the
+    MDS matrix and the first round's constants, in limbs and in words."""
     ark, mds, full = H.device_params(t)
     ref_ark, ref_mds, ref_full = _device_params(t)
     assert np.array_equal(ark, ref_ark) and np.array_equal(mds, ref_mds)
     assert np.array_equal(full, ref_full)
     lm_ark, lm_mds, lm_full = _params_limb_major(t)
     assert np.array_equal(full, lm_full.reshape(-1))
-    limb_ark, limb_mds = H.tables(t, "cpu", words=False)
-    word_ark, word_mds = H.tables(t, "cpu", words=True)
-    assert word_ark.dtype == torch.int32 and word_ark.shape[-1] == 8
-    for limbs, words, want in ((limb_ark, word_ark, lm_ark[..., 0]),
-                               (limb_mds, word_mds, lm_mds[..., 0])):
+    limb_ark, limb_mds = H.dense_tables(t, "cpu")
+    for limbs, want in ((limb_ark, lm_ark[..., 0]),
+                        (limb_mds, lm_mds[..., 0])):
         assert np.array_equal(limbs.numpy(), want.astype(np.int64))
-        assert np.array_equal(words_to_limbs(words).numpy(),
-                              want.astype(np.int64))
+    limb_c, limb_m, _, _ = H.tables(t, "cpu", words=False)
+    word_c, word_m, _, _ = H.tables(t, "cpu", words=True)
+    assert word_c.dtype == torch.int32 and word_c.shape[-1] == 8
+    want_mds = lm_mds[..., 0].astype(np.int64)
+    assert np.array_equal(limb_m.numpy(), want_mds)
+    assert np.array_equal(words_to_limbs(word_m).numpy(), want_mds)
+    want_c0 = lm_ark[0, ..., 0].astype(np.int64)
+    assert np.array_equal(limb_c[:t].numpy(), want_c0)
+    assert np.array_equal(words_to_limbs(word_c[:t]).numpy(), want_c0)
+
+
+@pytest.mark.parametrize("t", WIDTHS)
+def test_sparse_matches_dense_and_host(t):
+    """The optimized plain version against the dense one and the
+    reference's host permutation, limb for limb."""
+    states = _fr(300 + t, 4, t)
+    states[0] = [0] * t
+    states[1] = [FR_MOD - 1] * t
+    enc = _port(_enc([list(c) for c in zip(*states)]))
+    sparse = H.poseidon_perm_plain(enc)
+    assert torch.equal(sparse, H.poseidon_perm_dense_plain(enc))
+    want = [poseidon_perm_py(s) for s in states]
+    assert np.array_equal(sparse.numpy(), np.stack(
+        [REF_FR.encode(c) for c in zip(*want)]).astype(np.int64))
+
+
+@pytest.mark.parametrize("n_inputs", [1, 2, 4, 5])
+def test_sparse_hash_matches_xla_device(n_inputs):
+    enc = _port(_enc(_fr(40 + n_inputs, n_inputs, 6)))
+    want = np.asarray(poseidon_hash_device(jnp.asarray(enc.numpy().astype(
+        np.uint32)))).astype(np.int64)
+    state = torch.cat([torch.zeros_like(enc[:1]), enc])
+    assert np.array_equal(H.poseidon_perm_plain(state)[0].numpy(), want)
+    assert np.array_equal(H.poseidon_perm_dense_plain(state)[0].numpy(),
+                          want)
+
+
+# circomlibjs poseidon([1])
+POSEIDON_1 = int("1858613376851222093662057074591294061967785426927468947558"
+                 "5506675881198879027")
+
+
+def test_circomlibjs_vector():
+    assert H.poseidon_batch([[1]], device="cpu") == [POSEIDON_1]
+
+
+@pytest.mark.parametrize("t", WIDTHS)
+def test_sparse_table_sizes(t):
+    """C holds t R_F + R_P constants; each of the R_P partial rounds has a
+    first row and a first column, 2t - 1 entries, whose first entry is
+    M[0][0]; P keeps M's first row. M is not symmetric, so the equality
+    tests above tell s <- M s from s <- M^T s."""
+    r_p = PARTIAL_ROUNDS[t - 2]
+    sp = sparse_params(t)
+    mds = poseidon_params(t)[1]
+    assert len(sp.c) == t * FULL_ROUNDS + r_p
+    assert len(sp.s) == r_p and all(len(row) == 2 * t - 1 for row in sp.s)
+    assert all(row[0] == mds[0][0] for row in sp.s)
+    assert sp.m == mds and sp.p[0] == mds[0]
+    assert len(sp.p) == t and all(len(row) == t for row in sp.p)
+    assert mds != [list(col) for col in zip(*mds)]
+    c, m, p, s = H.tables(t, "cpu", words=False)
+    assert c.shape == (t * FULL_ROUNDS + r_p, 16)
+    assert m.shape == p.shape == (t, t, 16)
+    assert s.shape == (r_p, 2 * t - 1, 16)
+
+
+@pytest.mark.parametrize("t", WIDTHS)
+def test_table_forms_agree(t):
+    """Every optimized table: the kernel's int32 words equal the plain
+    version's int64 limbs, which decode to `sparse_params`' ints."""
+    sp = sparse_params(t)
+    limbs = H.tables(t, "cpu", words=False)
+    words = H.tables(t, "cpu", words=True)
+    for lim, wor, want in zip(limbs, words, (sp.c, sp.m, sp.p, sp.s)):
+        assert wor.dtype == torch.int32 and wor.is_contiguous()
+        assert wor.shape == (*lim.shape[:-1], 8)
+        assert torch.equal(words_to_limbs(wor), lim)
+        flat = np.asarray(want, dtype=object).reshape(-1).tolist()
+        assert FR_CTX.decode(lim) == flat
 
 
 def test_batch_matches_host_hash():
@@ -139,10 +224,26 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card(cuda_device):
+@pytest.mark.parametrize("b", [1000, 1, 129])
+def test_kernel_matches_plain_on_card(cuda_device, b):
     """The kernel against its plain version on the same card tensors, at
-    every width and a batch that is not a multiple of the block."""
+    every width, at batches that are not a multiple of the block (one
+    state; one past a block)."""
     for t in WIDTHS:
-        state = _port(_enc(_fr(200 + t, t, 1000))).to(cuda_device)
+        state = _port(_enc(_fr(200 + t + b, t, b))).to(cuda_device)
         assert torch.equal(H.poseidon_perm(state),
                            H.poseidon_perm_plain(state)), t
+
+
+@pytest.mark.cuda
+def test_kernel_variants_match_on_card(cuda_device):
+    """Each measured variant of the kernel at t = 6 (product inlined or out
+    of line, tables through __ldg or in shared memory) equals the main
+    instance."""
+    from infimum_tpu_torch.ff.fp import limbs_to_words
+
+    state = _port(_enc(_fr(77, 6, 300))).to(cuda_device)
+    words = limbs_to_words(state).transpose(1, 2).contiguous()
+    want = H.perm_words(words)
+    for name, variant in H.VARIANTS.items():
+        assert torch.equal(H.perm_words(words, variant), want), name
