@@ -6,11 +6,17 @@ Phases, in order; any failure raises and exits nonzero:
   1. probe: torch / CUDA versions, the card, compute capability 9.0;
   2. build: the CUDA kernels from infimum_tpu_torch/csrc/ (nvcc, sm_90a);
   3. e2e: the reference-dims poll, ProcessMessages(10,2,1,2) and
-     TallyVotes(10,1,2): setup on the card, the poll lifecycle, all six
-     batches proved through infimum_tpu_torch, each self-verified by the
-     native pairing (timed apart from its prove, as the reference e2e
-     times it) and checked against the poll's own public inputs, outcome
-     option 5;
+     TallyVotes(10,1,2): keys through the key cache (setup on the card on
+     a miss), the prewarm (kernels, hint programs, a throwaway proof per
+     circuit), the poll lifecycle through the port's pallet and user
+     roles, all six batches proved through infimum_tpu_torch, each
+     self-verified by the native pairing (timed apart from its prove, as
+     the reference e2e times it), then `commit_outcome` checks every proof
+     against the pallet's own public inputs, outcome option 5; the last
+     process and tally prove()'s stage traces, the prewarm and the kernel
+     load log printed; then the process key loaded again from the cache
+     (a hit: setup is not run), its load time beside the setup's, and a
+     proof from the loaded key verified;
   4. kernels at the first process proof's shapes: at each of its five
      MSMs (`a`, `b1`, `l`, `h` over G1, `b2` over G2) the layout stage and
      the accumulation kernel timed, with the mixed adds, the bound, the
@@ -19,7 +25,8 @@ Phases, in order; any failure raises and exits nonzero:
      limbs, equal window points as affine points) and timed; the weighted
      kernel's grid (at least one block per SM) and the adds its chunks cost
      beside the bound's; then the median of three steady `prove()` calls
-     of the first process batch;
+     of the first process batch with their stage traces, and the H
+     pipeline's host enqueue time beside its span on the card;
   5. negative checks: a tampered proof and a wrong public input are
      rejected;
   6. path checks: every MSM kernel was launched in the e2e run, and no
@@ -36,7 +43,16 @@ Phases, in order; any failure raises and exits nonzero:
      width t = 2..13 at 1,000 states against the native library; (d) the
      kernel's four variants at t = 6 timed in turns; (e) its registers
      and stack per width; then the same path checks for the Poseidon
-     kernel in (a).
+     kernel in (a);
+  8. the largest legal poll (`client/scale.py` `run_scale_poll` at its
+     defaults: 1,022 sign-ups, 15,624 messages, ProcessMessages(10,6,1,2)
+     and TallyVotes(10,1,2), 8 + 4 sampled proofs) on the card, its whole
+     record printed: every one of the 3,125 + 512 commitments walks
+     through the pallet poll's `prepare_public_inputs` (counted here),
+     every sampled proof verifies by the native pairing (counted here),
+     all four MSM kernel instances launch in the phase; then each MSM
+     kernel held against its plain version at the first sampled process
+     proof's shapes, and the same path checks.
 The last three lines of standard output are a JSON line with each kernel's
 launches, error, times and bound, then the card's name and power limit;
 the very last line is the result: {"ok": true, "device": {...}}.
@@ -201,11 +217,12 @@ def accum_grid(sdig, lanes: int, curve: str):
     return nlb * nwin, int(live.sum()), per_sm * sms
 
 
-def kernel_vs_plain(pk, cs, witness, mul_rate):
+def kernel_vs_plain(pk, cs, witness, mul_rate, tag=""):
     """Time the accumulation kernel and the layout before it at the five
-    MSM shapes of the first process proof; at `a` (G1) and `b2` (G2) also
-    compare each MSM kernel with its plain version. Returns per-kernel rows
-    (error, ms, plain ms, bound ms, bound by) at `a` and `b2`."""
+    MSM shapes of a process proof; at `a` (G1) and `b2` (G2) also compare
+    each MSM kernel with its plain version. Returns per-kernel rows
+    (error, ms, plain ms, bound ms, bound by) at `a` and `b2`. `tag` goes
+    before each line's label."""
     from infimum_tpu_torch.msm import msm as M
 
     rows_out = {}
@@ -224,7 +241,7 @@ def kernel_vs_plain(pk, cs, witness, mul_rate):
         acc_bound = bound(nbytes(*layout, edig, ept),
                           mixed * MIXED_MULS[curve.name], mul_rate)
         blocks, live, resident = accum_grid(sdig, lanes, curve.name)
-        log(f"[accum] {name} ({curve.name}, {N} rows, {lanes} lanes, T "
+        log(f"[{tag}accum] {name} ({curve.name}, {N} rows, {lanes} lanes, T "
             f"{N // lanes}): layout {lay_ms:.3f} ms; kernel {acc_ms:.3f} ms;"
             f" {mixed} mixed adds, bound {acc_bound[0]:.3f} ms "
             f"({acc_bound[1]}), {acc_bound[0] / acc_ms:.1%} of bound; "
@@ -248,7 +265,7 @@ def kernel_vs_plain(pk, cs, witness, mul_rate):
         got = M.decode_windows(M.words_to_limbs(wk).cpu(), curve.name)
         want = M.decode_windows(M.words_to_limbs(wp).cpu(), curve.name)
         err = max(_affine_err(g, p) for g, p in zip(got, want))
-        log(f"[kernel_vs_plain] {name} ({curve.name}): accum {acc_ms:.3f} ms"
+        log(f"[{tag}kernel_vs_plain] {name} ({curve.name}): accum {acc_ms:.3f} ms"
             f" vs plain {acc_plain_ms:.3f} ms, emissions equal (digits and "
             f"limbs); weighted {wt_ms:.3f} ms vs plain {wt_plain_ms:.3f} ms;"
             f" window points equal: {got == want}")
@@ -263,10 +280,10 @@ def kernel_vs_plain(pk, cs, witness, mul_rate):
         adds = int(torch.where(live_slots > 0, live_slots + top - 2, 0).sum())
         wt_bound = bound(nbytes(cdig, cpts, wk),
                          adds * ADD_MULS[curve.name], mul_rate)
-        log(f"[bound] {name}: {int(live_slots.sum())} live slots, {adds} "
+        log(f"[{tag}bound] {name}: {int(live_slots.sum())} live slots, {adds} "
             f"complete adds -> weighted bound {wt_bound[0]:.4f} ms "
             f"({wt_bound[1]})")
-        weighted_grid(name, spec, cdig, adds)
+        weighted_grid(name, spec, cdig, adds, tag)
         rows_out[f"msm_accum_{curve.name}"] = (err, acc_ms, acc_plain_ms,
                                               *acc_bound)
         rows_out[f"msm_weighted_{curve.name}"] = (err, wt_ms, wt_plain_ms,
@@ -310,7 +327,7 @@ def weighted_adds(cdig, spec) -> dict:
             "sums": int((live_chunks - 1).clamp(min=0).sum())}
 
 
-def weighted_grid(name, spec, cdig, bound_adds) -> None:
+def weighted_grid(name, spec, cdig, bound_adds, tag="") -> None:
     """The weighted kernel's grid and the adds its chunk walks cost beside
     the bound's. Fails when the grid has fewer blocks than the card has
     SMs."""
@@ -320,7 +337,7 @@ def weighted_grid(name, spec, cdig, bound_adds) -> None:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     blocks = M.weighted_blocks(K, spec) * nwin
     cost = weighted_adds(cdig, spec)
-    log(f"[weighted] {name} chunk {spec.chunk}: grid {blocks} blocks of "
+    log(f"[{tag}weighted] {name} chunk {spec.chunk}: grid {blocks} blocks of "
         f"{M.CHUNKS_PER_BLOCK} threads; chunk walks {cost['chunks']} complete"
         f" adds + {cost['sums']} to sum the chunks = "
         f"{(cost['chunks'] + cost['sums']) / bound_adds:.2f} x the bound's "
@@ -331,23 +348,76 @@ def weighted_grid(name, spec, cdig, bound_adds) -> None:
 
 def steady_prove(pk, cs, witness, publics) -> float:
     """Median of three `prove()` calls of one batch by the CUDA-synchronised
-    host clock, in ms; the last proof must verify."""
-    from infimum_tpu_torch.groth16.groth16 import prove, verify
+    host clock, in ms, each with its stage trace; the last proof must
+    verify. Then the H pipeline alone, three times: the host's time to
+    enqueue it beside the card's span by CUDA events."""
+    from infimum_tpu_torch.groth16 import groth16 as g16
 
-    times = []
+    runs = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        proof = prove(pk, cs, witness, device="cuda")
+        proof = g16.prove(pk, cs, witness, device="cuda")
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    if not verify(pk.vk, proof, publics):
+        runs.append(((time.perf_counter() - t0) * 1e3, g16.LAST_PROVE_TRACE))
+    if not g16.verify(pk.vk, proof, publics):
         raise AssertionError("steady proof rejected")
-    times.sort()
-    log(f"[prove] steady process prove(): median {times[1]:.1f} ms of "
-        f"{', '.join(f'{t:.1f}' for t in times)} (proof verifies); card "
-        f"{card_line()}")
-    return times[1]
+    runs.sort(key=lambda r: r[0])
+    log(f"[prove] steady process prove(): median {runs[1][0]:.1f} ms of "
+        f"{', '.join(f'{t:.1f}' for t, _ in runs)} (proof verifies); each "
+        f"run's stage trace (s): {'; '.join(json.dumps(tr) for _, tr in runs)}"
+        f"; card {card_line()}")
+    # the H pipeline alone: the host's time to enqueue it against the
+    # card's span from its first launch to its last
+    spans = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        g16.h_rows(cs, witness, "cuda")
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        spans.append(f"host {host_ms:.1f} / card {start.elapsed_time(end):.1f}")
+    log(f"[prove] H pipeline (h_rows) ms, host enqueue / card span: "
+        f"{'; '.join(spans)}")
+    traced_prove(pk, cs, witness)
+    return runs[1][0]
+
+
+def traced_prove(pk, cs, witness) -> None:
+    """One more steady prove() under `utils.profiling.trace`: with
+    INFIMUM_PROFILE_DIR set, its Chrome trace is written there and read
+    back for the card's busy time (the union of its kernels, copies and
+    sets) against the prove's host clock; otherwise a plain prove."""
+    from infimum_tpu_torch.groth16 import groth16 as g16
+    from infimum_tpu_torch.utils.profiling import trace
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with trace("steady_process_prove"):
+        g16.prove(pk, cs, witness, device="cuda")
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    out = os.environ.get("INFIMUM_PROFILE_DIR")
+    if not out:
+        return
+    with open(os.path.join(out, "steady_process_prove.json")) as f:
+        events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in (
+                       "kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    log(f"[prove] traced steady prove(): {wall_us / 1e3:.1f} ms under the "
+        f"profiler, card busy {busy / 1e3:.1f} ms ({kernels} kernels, "
+        f"{len(spans) - kernels} copies and sets), idle share "
+        f"{1 - busy / wall_us:.3f}; trace in {out}")
 
 
 def _affine_err(p, q) -> int:
@@ -624,12 +694,124 @@ def batch_times(timings: dict) -> None:
         f"inputs, witnesses and proves, no self-verify)")
 
 
+STAGES = ["h_dispatch", "witness_limbs", "msm_dispatch", "msm_wait"]
+
+
+def e2e_records(timings: dict) -> None:
+    """Phase 3: the stage traces of the last process and tally prove(),
+    the prewarm and the kernel load log; each trace has the four stages."""
+    for kind in ("process", "tally"):
+        trace = timings[f"trace_{kind}"]
+        if list(trace) != STAGES:
+            raise AssertionError(f"trace_{kind} has stages {list(trace)}")
+        log(f"[e2e] trace_{kind} (s, host clock, no sync between stages): "
+            f"{json.dumps(trace)}")
+    log(f"[e2e] prewarm {timings['prewarm']}s; kernel_load_log "
+        f"{json.dumps(timings['kernel_load_log'])}")
+    if len(timings["kernel_load_log"]) != 3:
+        raise AssertionError("kernel_load_log wants one entry a source")
+
+
+def cache_hit(run, cache_before: set, seed: int = 99) -> None:
+    """Phase 3: `setup_cached` for the process circuit with the e2e's seed
+    must load the key the e2e cached (setup is not run), and a proof from
+    the loaded key must verify."""
+    from infimum_tpu_torch.groth16 import groth16 as g16, pkcache
+
+    written = sorted(set(os.listdir(pkcache.default_cache_dir()))
+                     - cache_before)
+    real_setup = pkcache.setup
+
+    def no_setup(*a, **k):
+        raise AssertionError("setup_cached missed the key cache")
+
+    pkcache.setup = no_setup
+    try:
+        t0 = time.perf_counter()
+        pk = pkcache.setup_cached(run.keys.process_circuit.cs,
+                                  random.Random(seed), label="process",
+                                  device="cuda")
+        load_s = time.perf_counter() - t0
+    finally:
+        pkcache.setup = real_setup
+    if pk.vk != run.keys.process_pk.vk:
+        raise AssertionError("the loaded key's vk differs")
+    first = run.first_process
+    proof = g16.prove(pk, run.keys.process_circuit.cs, first["witness"],
+                      rng=random.Random(1), device="cuda")
+    if not g16.verify(pk.vk, proof, first["publics"]):
+        raise AssertionError("a proof from the loaded key was rejected")
+    log(f"[pkcache] process key loaded from the cache in {load_s:.3f}s, "
+        f"against setup_process {run.timings['setup_process']}s in the e2e "
+        f"({'a miss: it wrote ' + ', '.join(written) if written else 'a hit too'}"
+        f"); a proof from the loaded key verifies; card {card_line()}")
+
+
+def scale_poll(mul_rate) -> None:
+    """Phase 8: the largest legal poll on the card; counts the commitments
+    walked through the pallet poll and the native verifications, checks
+    that all four MSM kernel instances launched, then holds the MSM
+    kernels against their plain versions at the first sampled process
+    proof's shapes."""
+    from infimum_tpu_torch import kernels, native
+    from infimum_tpu_torch.client.scale import run_scale_poll
+    from infimum_tpu_torch.groth16 import groth16 as g16
+    from infimum_tpu_torch.maci.state import Poll
+
+    walked, verified, sampled = [], [], []
+    real = (Poll.prepare_public_inputs, native.groth16_verify, g16.prove)
+
+    def walk(self, *a, **k):
+        out = real[0](self, *a, **k)
+        walked.append(out[0])
+        return out
+
+    def native_verify(*a, **k):
+        ok = real[1](*a, **k)
+        verified.append(ok)
+        return ok
+
+    def prove(pk, cs, witness, *a, **k):
+        if not sampled:
+            sampled.append((pk, cs, witness))
+        return real[2](pk, cs, witness, *a, **k)
+
+    Poll.prepare_public_inputs, native.groth16_verify, g16.prove = (
+        walk, native_verify, prove)
+    try:
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        record = run_scale_poll(verbose=True, device="cuda")
+        torch.cuda.synchronize()
+        phase_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        Poll.prepare_public_inputs, native.groth16_verify, g16.prove = real
+    log(f"[scale] {phase_s:.1f}s record {json.dumps(record)}")
+    n_p, n_t = record["process_batches"], record["tally_batches"]
+    if [walked.count("process"), walked.count("tally")] != [n_p, n_t]:
+        raise AssertionError(f"walked {len(walked)} commitments, want "
+                             f"{n_p} + {n_t}")
+    want = record["sampled_process"] + record["sampled_tally"]
+    if len(verified) != want or not all(verified) or want != 12:
+        raise AssertionError(f"native verifications {verified}, want 12")
+    idle = [k for k, n in launches.items() if n == 0 and k.startswith("msm_")]
+    if idle:
+        raise AssertionError(f"MSM kernels never launched in phase 8: {idle}")
+    log(f"[scale] {n_p} + {n_t} commitments walked through the pallet's "
+        f"prepare_public_inputs; {len(verified)} sampled proofs verified by "
+        f"the native pairing; kernel launches {launches}; card {card_line()}")
+    pk, cs, witness = sampled[0]
+    kernel_vs_plain(pk, cs, witness, mul_rate, tag="scale ")
+
+
 def foreign_modules() -> list[str]:
     return [m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "infimum_tpu")]
 
 
 def main() -> int:
+    smoke_t0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -665,6 +847,10 @@ def main() -> int:
     if not native.available():
         raise SystemExit("native library did not load: verification would "
                          "not be the native pairing")
+    from infimum_tpu_torch.groth16.pkcache import default_cache_dir
+
+    os.makedirs(default_cache_dir(), exist_ok=True)
+    cache_before = set(os.listdir(default_cache_dir()))
     kernels.reset_counts()
     t0 = time.perf_counter()
     run = run_reference_e2e(verbose=True, device="cuda")
@@ -677,6 +863,8 @@ def main() -> int:
         f"{'native hint program' if witness_native else 'python hints'}")
     log(f"[e2e] kernel launches: {launches}")
     batch_times(run.timings)
+    e2e_records(run.timings)
+    cache_hit(run, cache_before)
 
     # 4. kernel vs plain on the first process proof's inputs
     first = run.first_process
@@ -723,6 +911,14 @@ def main() -> int:
                              f"{foreign_modules()[:5]}")
     log(f"[path] poseidon_perm launched {launches['poseidon_perm']} times "
         f"for the poll's trees; no JAX and no infimum_tpu module imported")
+
+    # 8. the largest legal poll
+    scale_poll(mul_rate)
+    if foreign_modules():
+        raise AssertionError(f"JAX or infimum_tpu imported: "
+                             f"{foreign_modules()[:5]}")
+    log(f"[path] no JAX and no infimum_tpu module imported; smoke "
+        f"{time.perf_counter() - smoke_t0:.1f}s")
 
     report = []
     for name, source, replaces in KERNEL_ROWS:

@@ -1,7 +1,9 @@
 """Poll proving orchestration on the port's Groth16.
 
 Counterpart of `infimum_tpu/client/prover.py`: `ProverKeys` builds both
-circuits and runs this package's setup; `PollProver` replays the poll's
+circuits and loads their keys through the on-disk key cache
+(`groth16/pkcache.py`), `prewarm` builds the CUDA kernels and runs one
+throwaway proof per circuit before batch 0; `PollProver` replays the poll's
 events, drains the process and tally batches exactly as the reference
 does, proves each batch with this package's `prove` and self-verifies it
 with the native pairing before it is handed on.
@@ -15,14 +17,19 @@ is initialised in the parent.
 from __future__ import annotations
 
 import random
+import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
+import torch
+
 from ..circuits.process import ProcessCircuit
 from ..circuits.tally import TallyCircuit
-from ..groth16.groth16 import ProvingKey, prove, setup, verify
+from ..groth16.groth16 import ProvingKey, prove, verify
+from ..groth16.pkcache import setup_cached
 from ..hash.poseidon_host import poseidon
-from ..io.arkworks import fr_to_hash_bytes, serialize_proof
+from ..io.arkworks import fr_to_hash_bytes, serialize_proof, serialize_vkey
 from ..maci.keys import Keypair
 from ..maci.replay import MaciReplay
 from ..maci.state import PollOutcome
@@ -61,14 +68,67 @@ class ProverKeys:
                  vote_option_tree_depth: int,
                  rng: random.Random | None = None,
                  device="cuda") -> "ProverKeys":
-        """Build both circuits and run the (single-party) setup on
-        `device`, process first, as the reference does."""
+        """Build both circuits and load their keys from the key cache, or
+        run the (single-party) setup on `device` and cache them, process
+        first, as the reference does."""
         rng = rng or random.Random(0xC0FFEE)
         pc, tc = cls.circuits(registration_depth, interaction_depth,
                               process_subtree_depth, tally_subtree_depth,
                               vote_option_tree_depth)
-        return cls(pc, tc, setup(pc.cs, rng, device),
-                   setup(tc.cs, rng, device))
+        return cls(pc, tc,
+                   setup_cached(pc.cs, rng, label="process", device=device),
+                   setup_cached(tc.cs, rng, label="tally", device=device))
+
+    @classmethod
+    def dims_only(cls, registration_depth: int, interaction_depth: int,
+                  process_subtree_depth: int, tally_subtree_depth: int,
+                  vote_option_tree_depth: int) -> "ProverKeys":
+        """Circuit dimensions without constraint systems or keys: enough for
+        witness inputs and commitment chaining, not for proving."""
+        pc, tc = cls.circuits(registration_depth, interaction_depth,
+                              process_subtree_depth, tally_subtree_depth,
+                              vote_option_tree_depth, build=False)
+        return cls(pc, tc, None, None)
+
+    def vkeys(self) -> dict:
+        """Pallet-shaped {process, tally} vkey byte dicts, the registration
+        payload of register_as_coordinator."""
+        return {
+            "process": serialize_vkey(self.process_pk.vk),
+            "tally": serialize_vkey(self.tally_pk.vk),
+        }
+
+    def prewarm(self, verbose: bool = True, device="cuda") -> dict:
+        """Ready everything batch 0 would otherwise pay for: on a card, the
+        CUDA kernels (built, or loaded from `build/`); the native
+        hint-program compile; one throwaway proof per circuit over a zero
+        witness on `device` (query encodings, row layouts, the MSM shapes).
+        Returns {prewarm_s, kernel_load_log}: one entry per CUDA source,
+        {kernel, path: "built" | "cached", s}, empty on the CPU. Raises
+        when the kernels cannot build or launch."""
+        from .. import kernels
+
+        t0 = time.perf_counter()
+        load_log = []
+        if torch.device(device).type == "cuda":
+            kernels.library()
+            load_log = [{"kernel": src,
+                         "path": "cached" if s is None else "built",
+                         "s": round(s or 0.0, 3)}
+                        for src, s in kernels.BUILD_INFO["sources"].items()]
+        for circuit, pk in ((self.process_circuit, self.process_pk),
+                            (self.tally_circuit, self.tally_pk)):
+            if pk is None:
+                continue
+            circuit.cs._native_prog()   # one-time hint-program compile
+            prove(pk, circuit.cs, [0] * circuit.cs.num_vars,
+                  rng=random.Random(0), device=device)
+        out = {"prewarm_s": round(time.perf_counter() - t0, 3),
+               "kernel_load_log": load_log}
+        if verbose:
+            print(f"[prewarm] {out['prewarm_s']}s, kernels: {load_log}",
+                  file=sys.stderr, flush=True)
+        return out
 
 
 class PollProver:
@@ -120,36 +180,42 @@ class PollProver:
                          for _ in range(tb.num_batches)]
         return process_batches, tally_batches, tb
 
-    def prove_batch(self, circuit, pk: ProvingKey, values, witness=None):
-        """Prove one batch and self-verify it against the circuit's public
-        inputs; returns the Proof."""
-        if witness is None:
-            witness = circuit.assignment(values)
+    def _prove_one(self, circuit, pk: ProvingKey, values) -> dict:
+        """Witness, prove and self-verify one batch; the serialized proof."""
+        witness = circuit.assignment(values)
         proof = prove(pk, circuit.cs, witness, rng=self.rng,
                       device=self.device)
         if not verify(pk.vk, proof, circuit.public_inputs(values)):
             raise AssertionError("self-verification failed")
-        return proof
+        return serialize_proof(proof)
 
     def prove_poll_results(self):
         """(proof_batches, outcome) ready for commit_outcome: every batch as
-        (serialized proof, new commitment bytes)."""
+        (serialized proof, new commitment bytes), each witness computed on a
+        worker thread one batch ahead of the proof in flight."""
         process_batches, tally_batches, tb = self.get_poll_results()
         jobs = [(self.keys.process_circuit, self.keys.process_pk, v, m)
                 for v, m in process_batches]
         jobs += [(self.keys.tally_circuit, self.keys.tally_pk, v, m)
                  for v, m in tally_batches]
-        batches = []
         with ThreadPoolExecutor(max_workers=1) as ex:
             futs = iter([ex.submit(c.assignment, v) for c, _, v, _ in jobs])
-            for circuit, pk, values, meta in jobs:
-                proof = self.prove_batch(circuit, pk, values,
-                                         next(futs).result())
-                batches.append((serialize_proof(proof),
-                                fr_to_hash_bytes(meta["new_commitment"])))
-        return batches, self.outcome(tb)
+            batches = self._prove_stream(jobs, lambda: next(futs).result())
+        return batches, self._outcome(tb)
 
-    def outcome(self, tb: TallyWitnessBuilder) -> PollOutcome:
+    def _prove_stream(self, jobs, next_witness):
+        batches = []
+        for circuit, pk, values, meta in jobs:
+            witness = next_witness()
+            proof = prove(pk, circuit.cs, witness, rng=self.rng,
+                          device=self.device)
+            if not verify(pk.vk, proof, circuit.public_inputs(values)):
+                raise AssertionError("self-verification failed")
+            batches.append((serialize_proof(proof),
+                            fr_to_hash_bytes(meta["new_commitment"])))
+        return batches
+
+    def _outcome(self, tb: TallyWitnessBuilder) -> PollOutcome:
         """Final results, one quinary inclusion proof per vote option,
         salts and commitments."""
         d = self.config.vote_option_tree_depth

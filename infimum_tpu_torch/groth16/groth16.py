@@ -10,14 +10,19 @@ same randomness and the same proofs:
     pointwise step and one coset iNTT) stay on `device`; the five MSMs
     (a, b1, l, h over G1 and b2 over G2) are dispatched before any host
     wait, through the CUDA MSM kernels on a card; the proof is assembled on
-    the host.
+    the host. Its four stages (`h_dispatch`, `witness_limbs`,
+    `msm_dispatch`, `msm_wait`) are recorded in LAST_PROVE_TRACE, with no
+    sync between them.
   - verify(): the native C++ pairing (`native`), which reads the keys and
-    proofs through `io.arkworks`.
+    proofs through `io.arkworks`; without the native library, verify_py's
+    pure-Python pairing (curve/pairing.py).
 """
 
 from __future__ import annotations
 
+import os
 import random
+import sys
 from dataclasses import dataclass
 
 import torch
@@ -34,10 +39,15 @@ from ..msm.msm import (
 )
 from ..ntt.ntt import _root_of_unity, coset_ntt, coset_intt, intt
 from .r1cs import LC, ConstraintSystem
+from ..utils.profiling import Stopwatch
 from .rowval import SparseRows, eval_rows
 
 P = FR_MOD
 COSET_GEN = 5  # Fr's standard multiplicative generator (as arkworks)
+
+# stage timings of the most recent prove() call (utils/profiling.Stopwatch
+# as_dict), under the reference's stage names
+LAST_PROVE_TRACE: dict = {}
 
 
 @dataclass
@@ -245,24 +255,35 @@ def _msm_async(pk: ProvingKey, name: str, points, scalars: torch.Tensor,
 
 def prove(pk: ProvingKey, cs: ConstraintSystem, witness: list[int],
           rng: random.Random | None = None, device="cuda") -> Proof:
+    global LAST_PROVE_TRACE
+    sw = Stopwatch()
     rng = rng or random.SystemRandom()
     r = rng.randrange(P)
     s = rng.randrange(P)
     npub = cs.num_public + 1
     m = _domain_size(cs)
 
-    h = h_rows(cs, witness, device)
-    w = ints_to_tensor([x % P for x in witness], device)
-    a_fin = _msm_async(pk, "a", pk.a_query, w)
-    b2_fin = _msm_async(pk, "b2", pk.b_g2_query, w, G2_DEV)
-    b1_fin = _msm_async(pk, "b1", pk.b_g1_query, w)
-    c_fin = _msm_async(pk, "l", pk.l_query, w[npub:])
-    h_fin = _msm_async(pk, "h", pk.h_query, h[:m - 1])
-    # degree gate: one row read back, queued behind the MSM dispatches
-    if bool(h[m - 1].any()):
-        raise AssertionError("h has unexpected degree")
-    a_acc, b2_acc, b1_acc = a_fin(), b2_fin(), b1_fin()
-    c_acc, h_acc = c_fin(), h_fin()
+    # The H pipeline and the five MSMs are dispatched with no sync between
+    # the stages, so the card runs them back to back while the host goes on.
+    with sw.stage("h_dispatch"):
+        h = h_rows(cs, witness, device)
+    with sw.stage("witness_limbs"):
+        w = ints_to_tensor([x % P for x in witness], device)
+    with sw.stage("msm_dispatch"):
+        a_fin = _msm_async(pk, "a", pk.a_query, w)
+        b2_fin = _msm_async(pk, "b2", pk.b_g2_query, w, G2_DEV)
+        b1_fin = _msm_async(pk, "b1", pk.b_g1_query, w)
+        c_fin = _msm_async(pk, "l", pk.l_query, w[npub:])
+        h_fin = _msm_async(pk, "h", pk.h_query, h[:m - 1])
+    with sw.stage("msm_wait"):
+        # degree gate: one row read back, queued behind the MSM dispatches
+        if bool(h[m - 1].any()):
+            raise AssertionError("h has unexpected degree")
+        a_acc, b2_acc, b1_acc = a_fin(), b2_fin(), b1_fin()
+        c_acc, h_acc = c_fin(), h_fin()
+    LAST_PROVE_TRACE = sw.as_dict()
+    if os.environ.get("INFIMUM_TRACE"):
+        print(sw.report(), file=sys.stderr, flush=True)
 
     # A = alpha + sum + r*delta
     pi_a = g1_add(g1_add(pk.alpha_g1, a_acc), g1_mul_fast(pk.delta_g1, r))
@@ -277,14 +298,39 @@ def prove(pk: ProvingKey, cs: ConstraintSystem, witness: list[int],
     return Proof(a=pi_a, b=pi_b, c=pi_c)
 
 
+def prepare_inputs(vk: VerifyingKey, public_inputs: list[int]):
+    """IC-combined public input point (ark-groth16 prepare_inputs)."""
+    acc = vk.ic[0]
+    for point, x in zip(vk.ic[1:], public_inputs):
+        acc = g1_add(acc, g1_mul_fast(point, x))
+    return acc
+
+
 def verify(vk: VerifyingKey, proof: Proof, public_inputs: list[int]) -> bool:
     """Pairing check e(A,B) = e(alpha,beta) e(IC(x),gamma) e(C,delta) by the
-    native C++ verifier; raises when the native library cannot load."""
+    native C++ verifier, or by verify_py when the native library cannot
+    load."""
     from .. import native
-    from ..io.arkworks import serialize_proof, serialize_vkey
 
-    if not native.available():
-        raise RuntimeError("native library unavailable: "
-                           "build it with `make -C native`")
-    return native.groth16_verify(serialize_vkey(vk), serialize_proof(proof),
-                                 [x % P for x in public_inputs])
+    if native.available():
+        from ..io.arkworks import serialize_proof, serialize_vkey
+
+        return native.groth16_verify(
+            serialize_vkey(vk), serialize_proof(proof),
+            [x % P for x in public_inputs])
+    return verify_py(vk, proof, public_inputs)
+
+
+def verify_py(vk: VerifyingKey, proof: Proof, public_inputs: list[int]) -> bool:
+    """The same check on the pure-Python pairing (curve/pairing.py): about
+    a second a proof."""
+    from ..curve.pairing import multi_pairing_is_one
+
+    ic = prepare_inputs(vk, public_inputs)
+    # e(A, B) e(-alpha, beta) e(-IC, gamma) e(-C, delta) == 1
+    return multi_pairing_is_one([
+        (proof.a, proof.b),
+        (g1_neg(vk.alpha_g1), vk.beta_g2),
+        (g1_neg(ic), vk.gamma_g2),
+        (g1_neg(proof.c), vk.delta_g2),
+    ])

@@ -1,10 +1,11 @@
-"""Proving keys carried over from the reference package.
+"""Proving keys carried over from the reference package, and the key
+cache's reader.
 
-Counterpart of `infimum_tpu/groth16/pkcache.py`'s reader. `from_reference`
-turns a reference `ProvingKey` (in memory) into this package's, and
-`load_npz` reads the reference's on-disk key cache with numpy alone: raw
+`from_reference` turns a reference `ProvingKey` (in memory) into this
+package's, and `load_npz` reads the on-disk key cache with numpy alone: raw
 little-endian 16-bit limb arrays (standard form, not Montgomery) per query,
-plus infinity masks (`pkcache.py:11-13`).
+plus infinity masks. `pkcache.py` writes that cache (as `load_pk`, it reads
+it through `load_npz`), in the format of `infimum_tpu/groth16/pkcache.py`.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ def _g2_from_arrays(limbs, inf):
 
 
 def load_npz(path: str) -> ProvingKey:
-    """Read a key written by the reference's `pkcache.save_pk`."""
+    """Read a key written by either package's `pkcache.save_pk`."""
     with np.load(path) as z:
         if int(z["format_version"]) != FORMAT_VERSION:
             raise ValueError(f"pk cache format mismatch: {path}")
