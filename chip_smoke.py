@@ -383,41 +383,7 @@ def steady_prove(pk, cs, witness, publics) -> float:
         spans.append(f"host {host_ms:.1f} / card {start.elapsed_time(end):.1f}")
     log(f"[prove] H pipeline (h_rows) ms, host enqueue / card span: "
         f"{'; '.join(spans)}")
-    traced_prove(pk, cs, witness)
     return runs[1][0]
-
-
-def traced_prove(pk, cs, witness) -> None:
-    """One more steady prove() under `utils.profiling.trace`: with
-    INFIMUM_PROFILE_DIR set, its Chrome trace is written there and read
-    back for the card's busy time (the union of its kernels, copies and
-    sets) against the prove's host clock; otherwise a plain prove."""
-    from infimum_tpu_torch.groth16 import groth16 as g16
-    from infimum_tpu_torch.utils.profiling import trace
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with trace("steady_process_prove"):
-        g16.prove(pk, cs, witness, device="cuda")
-        torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6
-    out = os.environ.get("INFIMUM_PROFILE_DIR")
-    if not out:
-        return
-    with open(os.path.join(out, "steady_process_prove.json")) as f:
-        events = json.load(f)["traceEvents"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                   if e.get("ph") == "X" and e.get("cat") in (
-                       "kernel", "gpu_memcpy", "gpu_memset"))
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    kernels = sum(1 for e in events if e.get("cat") == "kernel")
-    log(f"[prove] traced steady prove(): {wall_us / 1e3:.1f} ms under the "
-        f"profiler, card busy {busy / 1e3:.1f} ms ({kernels} kernels, "
-        f"{len(spans) - kernels} copies and sets), idle share "
-        f"{1 - busy / wall_us:.3f}; trace in {out}")
 
 
 def _affine_err(p, q) -> int:

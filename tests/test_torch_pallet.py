@@ -227,3 +227,12 @@ def test_typed_dispatcher_matches_reference():
         out.append(([[(ev.name, ev.data) for ev in r.events] for r in got],
                     e.value.error.name))
     assert out[0] == out[1]
+
+
+def test_pallet_verifies_with_the_ports_verify():
+    from infimum_tpu_torch.groth16 import groth16
+    from infimum_tpu_torch.pallet import chain
+
+    assert chain.groth16_verify is groth16.verify
+    assert chain.deserialize_proof(FIX["get_proof"]["process"]).__class__ \
+        is groth16.Proof
