@@ -38,8 +38,8 @@ from ..msm.msm import (
     combine_window_points, encode_rows, msm_lanes, msm_rows_async,
 )
 from ..ntt.ntt import _root_of_unity, coset_ntt, coset_intt, intt
-from .r1cs import LC, ConstraintSystem
 from ..utils.profiling import Stopwatch
+from .r1cs import LC, ConstraintSystem
 from .rowval import SparseRows, eval_rows
 
 P = FR_MOD
@@ -263,8 +263,8 @@ def prove(pk: ProvingKey, cs: ConstraintSystem, witness: list[int],
     npub = cs.num_public + 1
     m = _domain_size(cs)
 
-    # The H pipeline and the five MSMs are dispatched with no sync between
-    # the stages, so the card runs them back to back while the host goes on.
+    # No sync between the stages, as in the reference: the host waits for
+    # the card only where it reads back (the degree gate, the combines).
     with sw.stage("h_dispatch"):
         h = h_rows(cs, witness, device)
     with sw.stage("witness_limbs"):
