@@ -52,7 +52,21 @@ Phases, in order; any failure raises and exits nonzero:
      every sampled proof verifies by the native pairing (counted here),
      all four MSM kernel instances launch in the phase; then each MSM
      kernel held against its plain version at the first sampled process
-     proof's shapes, and the same path checks.
+     proof's shapes, and the same path checks;
+  9. the zkey path at reference dims (ProcessMessages(10,2,1,2), domain
+     2^18): `generate_zkey` on the card, `write_zkey` to a file and
+     `read_zkey` back, every field equal, the file's size and each step's
+     seconds; `prove_zkey` of phase 3's first process witness twice from
+     the read zkey (the first encodes the queries, the second is steady),
+     each proof verified by the native pairing under `vk_from_zkey` and
+     through the arkworks bytes, a tampered proof and a wrong public input
+     rejected, all four MSM kernel instances launched; each MSM kernel
+     held against its plain version at the zkey's `h` shape (2^18 rows);
+ 10. the parallel witness: `PollProver.prove_poll_results` of the e2e's
+     poll with forked witness workers and with INFIMUM_PARALLEL_WITNESS=0,
+     each from a fresh prover with the e2e's seed, the batches equal byte
+     for byte, no batch fallen back to the parent within a 120 s timeout,
+     both wall times and the worker count printed.
 The last three lines of standard output are a JSON line with each kernel's
 launches, error, times and bound, then the card's name and power limit;
 the very last line is the result: {"ok": true, "device": {...}}.
@@ -102,6 +116,8 @@ ADD_MULS = {"g1": 12, "g2": 12 * 3 + 2 * 3}
 MIXED_MULS = {"g1": 11, "g2": 11 * 3 + 2 * 3}
 SIGNUPS, MESSAGES = 1022, 15624   # client/scale.py: the largest legal poll
 POLL_SEED, BENCH_SEED = 20260820, 20260819
+ZKEY_SEED = 20260821
+WITNESS_TIMEOUT_S = 120
 
 
 def log(msg: str) -> None:
@@ -159,27 +175,20 @@ def query_inputs(pk, cs, witness):
     `b2` (G2)."""
     from infimum_tpu_torch.curve.proj import G1_DEV, G2_DEV
     from infimum_tpu_torch.ff.bn254 import FR_MOD
-    from infimum_tpu_torch.ff.fp import NLIMBS, ints_to_tensor
+    from infimum_tpu_torch.ff.fp import ints_to_tensor
     from infimum_tpu_torch.groth16.groth16 import (
-        _domain_size, _query_encoding, h_rows,
+        _domain_size, _msm_inputs, h_rows,
     )
 
     w = ints_to_tensor([x % FR_MOD for x in witness], "cuda")
     npub, m = cs.num_public + 1, _domain_size(cs)
-    out = []
-    for name, points, curve, scalars in (
-            ("a", pk.a_query, G1_DEV, w), ("b1", pk.b_g1_query, G1_DEV, w),
-            ("l", pk.l_query, G1_DEV, w[npub:]),
-            ("h", pk.h_query, G1_DEV, h_rows(cs, witness, "cuda")[:m - 1]),
-            ("b2", pk.b_g2_query, G2_DEV, w)):
-        rows, none_mask, lanes = _query_encoding(pk, name, points, curve,
-                                                 "cuda")
-        n = scalars.shape[0]
-        sc = torch.zeros((rows.shape[0], NLIMBS), dtype=torch.int64,
-                         device="cuda")
-        sc[:n] = torch.where(none_mask[:n].unsqueeze(-1), 0, scalars)
-        out.append((name, curve, rows, sc, lanes))
-    return out
+    return [(name, curve, *_msm_inputs(pk, name, points, scalars, curve))
+            for name, points, curve, scalars in (
+                ("a", pk.a_query, G1_DEV, w), ("b1", pk.b_g1_query, G1_DEV, w),
+                ("l", pk.l_query, G1_DEV, w[npub:]),
+                ("h", pk.h_query, G1_DEV,
+                 h_rows(cs, witness, "cuda")[:m - 1]),
+                ("b2", pk.b_g2_query, G2_DEV, w))]
 
 
 RESOURCES = re.compile(
@@ -223,72 +232,84 @@ def kernel_vs_plain(pk, cs, witness, mul_rate, tag=""):
     each MSM kernel with its plain version. Returns per-kernel rows
     (error, ms, plain ms, bound ms, bound by) at `a` and `b2`. `tag` goes
     before each line's label."""
-    from infimum_tpu_torch.msm import msm as M
-
     rows_out = {}
     for name, curve, rows, sc, lanes in query_inputs(pk, cs, witness):
-        spec = M.SPECS[curve.name]
-        N = rows.shape[0]
-        lay_ms, layout = cuda_ms(
-            lambda: M.lane_layout(rows, sc, lanes, spec), 3, warm=1)
-        acc_ms, (edig, ept) = cuda_ms(lambda: M.accumulate(*layout, spec), 3,
-                                      warm=1)
-        # the least work these inputs need: one mixed add per entry whose
-        # digit repeats the one before it in its lane (and is not 0)
-        sdig = layout[0]
-        mixed = int(((sdig[..., 1:] == sdig[..., :-1]) & (sdig[..., 1:] != 0))
-                    .sum())
-        acc_bound = bound(nbytes(*layout, edig, ept),
-                          mixed * MIXED_MULS[curve.name], mul_rate)
-        blocks, live, resident = accum_grid(sdig, lanes, curve.name)
-        log(f"[{tag}accum] {name} ({curve.name}, {N} rows, {lanes} lanes, T "
-            f"{N // lanes}): layout {lay_ms:.3f} ms; kernel {acc_ms:.3f} ms;"
-            f" {mixed} mixed adds, bound {acc_bound[0]:.3f} ms "
-            f"({acc_bound[1]}), {acc_bound[0] / acc_ms:.1%} of bound; "
-            f"{accum_resources(curve.name)}; grid {blocks} blocks, {live} "
-            f"with a live lane, {resident} resident = "
-            f"{blocks / resident:.2f} waves ({live / resident:.2f} live)")
-        if name not in ("a", "b2"):
-            continue
-        acc_plain_ms, plain_e = cuda_ms(
-            lambda: M.accumulate_plain(*layout, spec), 1)
-        K = spec.n_buckets + lanes + 2
-        cdig, cpts = M.compact(edig, ept, K)
-        pdig, ppts = M.compact(*plain_e, K)
-        if not torch.equal(cdig, pdig):
-            raise AssertionError(f"{name}: emitted digits differ")
-        if not torch.equal(cpts, ppts):
-            raise AssertionError(f"{name}: emitted points differ")
-        wt_ms, wk = cuda_ms(lambda: M.weighted_sum(cdig, cpts, spec), 3)
-        wt_plain_ms, wp = cuda_ms(
-            lambda: M.weighted_sum_plain(pdig, ppts, spec), 1)
-        got = M.decode_windows(M.words_to_limbs(wk).cpu(), curve.name)
-        want = M.decode_windows(M.words_to_limbs(wp).cpu(), curve.name)
-        err = max(_affine_err(g, p) for g, p in zip(got, want))
-        log(f"[{tag}kernel_vs_plain] {name} ({curve.name}): accum {acc_ms:.3f} ms"
-            f" vs plain {acc_plain_ms:.3f} ms, emissions equal (digits and "
-            f"limbs); weighted {wt_ms:.3f} ms vs plain {wt_plain_ms:.3f} ms;"
-            f" window points equal: {got == want}")
-        if got != want:
-            raise AssertionError(f"{name}: kernel and plain windows differ")
-        # per window, with a running sum (the slots of a digit summed into
-        # its bucket, then from the largest digit D down the running bucket
-        # sum added into the total once a digit): live slots + D - 2
-        # complete adds
-        live_slots = (cdig > 0).sum(1)
-        top = cdig.max(1).values.to(torch.int64)
-        adds = int(torch.where(live_slots > 0, live_slots + top - 2, 0).sum())
-        wt_bound = bound(nbytes(cdig, cpts, wk),
-                         adds * ADD_MULS[curve.name], mul_rate)
-        log(f"[{tag}bound] {name}: {int(live_slots.sum())} live slots, {adds} "
-            f"complete adds -> weighted bound {wt_bound[0]:.4f} ms "
-            f"({wt_bound[1]})")
-        weighted_grid(name, spec, cdig, adds, tag)
-        rows_out[f"msm_accum_{curve.name}"] = (err, acc_ms, acc_plain_ms,
-                                              *acc_bound)
-        rows_out[f"msm_weighted_{curve.name}"] = (err, wt_ms, wt_plain_ms,
-                                                 *wt_bound)
+        rows_out.update(msm_kernels(name, curve, rows, sc, lanes, mul_rate,
+                                    tag, compare=name in ("a", "b2")))
     return rows_out
+
+
+def msm_kernels(name, curve, rows, sc, lanes, mul_rate, tag="",
+                compare=False) -> dict:
+    """One MSM's layout stage and accumulation kernel timed, with the
+    mixed adds, the bound, the kernel's registers and its grid in waves;
+    with `compare`, each MSM kernel held against its plain torch version
+    (equal emitted digits and limbs, equal window points as affine points)
+    and timed. Returns per-kernel rows (error, ms, plain ms, bound ms,
+    bound by) when it compares, else nothing."""
+    from infimum_tpu_torch.msm import msm as M
+
+    spec = M.SPECS[curve.name]
+    N = rows.shape[0]
+    lay_ms, layout = cuda_ms(
+        lambda: M.lane_layout(rows, sc, lanes, spec), 3, warm=1)
+    acc_ms, (edig, ept) = cuda_ms(lambda: M.accumulate(*layout, spec), 3,
+                                  warm=1)
+    # the least work these inputs need: one mixed add per entry whose
+    # digit repeats the one before it in its lane (and is not 0)
+    sdig = layout[0]
+    mixed = int(((sdig[..., 1:] == sdig[..., :-1]) & (sdig[..., 1:] != 0))
+                .sum())
+    acc_bound = bound(nbytes(*layout, edig, ept),
+                      mixed * MIXED_MULS[curve.name], mul_rate)
+    blocks, live, resident = accum_grid(sdig, lanes, curve.name)
+    log(f"[{tag}accum] {name} ({curve.name}, {N} rows, {lanes} lanes, T "
+        f"{N // lanes}): layout {lay_ms:.3f} ms; kernel {acc_ms:.3f} ms;"
+        f" {mixed} mixed adds, bound {acc_bound[0]:.3f} ms "
+        f"({acc_bound[1]}), {acc_bound[0] / acc_ms:.1%} of bound; "
+        f"{accum_resources(curve.name)}; grid {blocks} blocks, {live} "
+        f"with a live lane, {resident} resident = "
+        f"{blocks / resident:.2f} waves ({live / resident:.2f} live)")
+    if not compare:
+        return {}
+    acc_plain_ms, plain_e = cuda_ms(
+        lambda: M.accumulate_plain(*layout, spec), 1)
+    K = spec.n_buckets + lanes + 2
+    cdig, cpts = M.compact(edig, ept, K)
+    pdig, ppts = M.compact(*plain_e, K)
+    if not torch.equal(cdig, pdig):
+        raise AssertionError(f"{name}: emitted digits differ")
+    if not torch.equal(cpts, ppts):
+        raise AssertionError(f"{name}: emitted points differ")
+    wt_ms, wk = cuda_ms(lambda: M.weighted_sum(cdig, cpts, spec), 3)
+    wt_plain_ms, wp = cuda_ms(
+        lambda: M.weighted_sum_plain(pdig, ppts, spec), 1)
+    got = M.decode_windows(M.words_to_limbs(wk).cpu(), curve.name)
+    want = M.decode_windows(M.words_to_limbs(wp).cpu(), curve.name)
+    err = max(_affine_err(g, p) for g, p in zip(got, want))
+    log(f"[{tag}kernel_vs_plain] {name} ({curve.name}): accum {acc_ms:.3f} ms"
+        f" vs plain {acc_plain_ms:.3f} ms, emissions equal (digits and "
+        f"limbs); weighted {wt_ms:.3f} ms vs plain {wt_plain_ms:.3f} ms;"
+        f" window points equal: {got == want}")
+    if got != want:
+        raise AssertionError(f"{name}: kernel and plain windows differ")
+    # per window, with a running sum (the slots of a digit summed into
+    # its bucket, then from the largest digit D down the running bucket
+    # sum added into the total once a digit): live slots + D - 2
+    # complete adds
+    live_slots = (cdig > 0).sum(1)
+    top = cdig.max(1).values.to(torch.int64)
+    adds = int(torch.where(live_slots > 0, live_slots + top - 2, 0).sum())
+    wt_bound = bound(nbytes(cdig, cpts, wk),
+                     adds * ADD_MULS[curve.name], mul_rate)
+    log(f"[{tag}bound] {name}: {int(live_slots.sum())} live slots, {adds} "
+        f"complete adds -> weighted bound {wt_bound[0]:.4f} ms "
+        f"({wt_bound[1]})")
+    weighted_grid(name, spec, cdig, adds, tag)
+    return {f"msm_accum_{curve.name}": (err, acc_ms, acc_plain_ms,
+                                        *acc_bound),
+            f"msm_weighted_{curve.name}": (err, wt_ms, wt_plain_ms,
+                                           *wt_bound)}
 
 
 def weighted_adds(cdig, spec) -> dict:
@@ -771,6 +792,156 @@ def scale_poll(mul_rate) -> None:
     kernel_vs_plain(pk, cs, witness, mul_rate, tag="scale ")
 
 
+def zkey_phase(run, mul_rate) -> None:
+    """Phase 9: the process circuit's zkey generated on the card, written
+    to a file and read back (every field equal), two `prove_zkey` calls of
+    the e2e's first process witness from the read zkey (the first encodes
+    its queries), each proof verified by the native pairing and through
+    the arkworks bytes, a tampered proof and a wrong public input
+    rejected, all four MSM kernel instances launched; then each MSM kernel
+    held against its plain version at the zkey's `h` shape."""
+    import dataclasses
+    import tempfile
+
+    from infimum_tpu_torch import kernels, native
+    from infimum_tpu_torch.curve.bn254_host import G1_GEN, g1_add
+    from infimum_tpu_torch.curve.proj import G1_DEV
+    from infimum_tpu_torch.groth16 import groth16 as g16, zkey as Z
+    from infimum_tpu_torch.io import arkworks as ark, snarkjs
+
+    cs = run.keys.process_circuit.cs
+    witness, publics = run.first_process["witness"], run.first_process[
+        "publics"]
+    t0 = time.perf_counter()
+    zk = Z.generate_zkey(cs, random.Random(ZKEY_SEED), device="cuda")
+    gen_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "process.zkey")
+        t0 = time.perf_counter()
+        with open(path, "wb") as f:
+            f.write(snarkjs.write_zkey(zk))
+        write_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        with open(path, "rb") as f:
+            back = snarkjs.read_zkey(f.read())
+        read_s = time.perf_counter() - t0
+    differ = [f.name for f in dataclasses.fields(zk)
+              if getattr(zk, f.name) != getattr(back, f.name)]
+    if differ:
+        raise AssertionError(f"zkey fields differ after the file: {differ}")
+    log(f"[zkey] process zkey: {zk.n_vars} vars, domain {zk.domain_size}, "
+        f"{len(zk.coeffs)} A/B coefficients; generate_zkey {gen_s:.3f}s on "
+        f"the card, write_zkey {write_s:.3f}s, {size} bytes, read_zkey "
+        f"{read_s:.3f}s; every field read back equal")
+    del zk
+
+    kernels.reset_counts()
+    times, proofs = [], []
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proofs.append(Z.prove_zkey(back, witness,
+                                   rng=random.Random(ZKEY_SEED + 1 + i),
+                                   device="cuda"))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = kernels.launch_counts()
+    idle = [k for k, n in launches.items() if n == 0 and k.startswith("msm_")]
+    if idle:
+        raise AssertionError(f"MSM kernels never launched in phase 9: {idle}")
+    vk = Z.vk_from_zkey(back)
+    vk_bytes = ark.serialize_vkey(vk)
+    for proof in proofs:
+        proof_bytes = ark.serialize_proof(proof)
+        if not native.groth16_verify(vk_bytes, proof_bytes, publics):
+            raise AssertionError("prove_zkey proof rejected by native")
+        if not g16.verify(ark.deserialize_vkey(vk_bytes),
+                          ark.deserialize_proof(proof_bytes), publics):
+            raise AssertionError("prove_zkey proof rejected after arkworks")
+    proof = proofs[-1]
+    if g16.verify(vk, g16.Proof(a=g1_add(proof.a, G1_GEN), b=proof.b,
+                                c=proof.c), publics):
+        raise AssertionError("tampered zkey proof accepted")
+    if g16.verify(vk, proof, [publics[0] + 1] + publics[1:]):
+        raise AssertionError("wrong public input accepted under the zkey")
+    log(f"[zkey] prove_zkey first {times[0]:.3f}s (encodes the queries), "
+        f"steady {times[1]:.3f}s; both proofs verify by the native pairing "
+        f"and through the arkworks bytes; tampered proof and wrong public "
+        f"input rejected; kernel launches {launches}; card {card_line()}")
+
+    p_odd = Z.odd_coset_rows(back, witness, "cuda")
+    rows, sc, lanes = g16._msm_inputs(back, "h", back.h_query, p_odd, G1_DEV)
+    msm_kernels("h", G1_DEV, rows, sc, lanes, mul_rate, tag="zkey ",
+                compare=True)
+
+
+def parallel_phase(run) -> None:
+    """Phase 10: `prove_poll_results` of the e2e's poll with forked
+    witness workers and with INFIMUM_PARALLEL_WITNESS=0, each from a fresh
+    prover with the e2e's seed; equal batches byte for byte (every proof
+    self-verified inside), equal outcomes, the workers' path taken once a
+    circuit, no batch fallen back, all four MSM kernel instances launched
+    in each run."""
+    from infimum_tpu_torch import kernels
+    from infimum_tpu_torch.witness import parallel as WP
+
+    saved = {k: os.environ.get(k) for k in ("INFIMUM_PARALLEL_WITNESS",
+                                             "INFIMUM_WITNESS_TIMEOUT")}
+    real = WP.iter_assignments
+    calls = []
+
+    def recording(circuit, batch_values, processes=None):
+        calls.append(len(batch_values))
+        return real(circuit, batch_values, processes)
+
+    out = {}
+    os.environ["INFIMUM_WITNESS_TIMEOUT"] = str(WITNESS_TIMEOUT_S)
+    WP.iter_assignments = recording
+    try:
+        for mode in ("1", "0"):
+            os.environ["INFIMUM_PARALLEL_WITNESS"] = mode
+            prover = run.new_prover("cuda")
+            fell = WP.FALLBACK_BATCHES
+            kernels.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batches, outcome = prover.prove_poll_results()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+            idle = [k for k, n in launches.items()
+                    if n == 0 and k.startswith("msm_")]
+            if idle:
+                raise AssertionError(f"MSM kernels idle in phase 10: {idle}")
+            if WP.FALLBACK_BATCHES != fell:
+                raise AssertionError(f"{WP.FALLBACK_BATCHES - fell} batches "
+                                     f"fell back to the parent")
+            out[mode] = (batches, outcome, wall, list(calls), launches)
+            calls.clear()
+    finally:
+        WP.iter_assignments = real
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    workers, thread = out["1"], out["0"]
+    if workers[0] != thread[0] or workers[1] != thread[1]:
+        raise AssertionError("worker and thread runs differ")
+    if len(workers[3]) != 2 or thread[3]:
+        raise AssertionError(f"iter_assignments calls {workers[3]} with "
+                             f"workers, {thread[3]} without")
+    pools = [min(n, os.cpu_count() or 1) for n in workers[3]]
+    log(f"[parallel] prove_poll_results with forked witness workers "
+        f"{workers[2]:.3f}s (process {workers[3][0]} batches on {pools[0]} "
+        f"workers, tally {workers[3][1]} on {pools[1]}; {os.cpu_count()} "
+        f"CPUs), on one thread {thread[2]:.3f}s; {len(workers[0])} batches "
+        f"equal byte for byte, every proof self-verified, outcomes equal; "
+        f"no batch fell back (timeout {WITNESS_TIMEOUT_S} s); kernel "
+        f"launches {workers[4]} / {thread[4]}; card {card_line()}")
+
+
 def foreign_modules() -> list[str]:
     return [m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "infimum_tpu")]
@@ -880,6 +1051,13 @@ def main() -> int:
 
     # 8. the largest legal poll
     scale_poll(mul_rate)
+    if foreign_modules():
+        raise AssertionError(f"JAX or infimum_tpu imported: "
+                             f"{foreign_modules()[:5]}")
+
+    # 9. the zkey path; 10. the parallel witness
+    zkey_phase(run, mul_rate)
+    parallel_phase(run)
     if foreign_modules():
         raise AssertionError(f"JAX or infimum_tpu imported: "
                              f"{foreign_modules()[:5]}")

@@ -38,7 +38,20 @@ COORDINATOR_SK = 0xA11CE
 class E2ERun:
     timings: dict
     keys: ProverKeys
-    first_process: dict     # values, witness, proof, publics of batch 0
+    pallet: InfimumPallet
+    coordinator: Coordinator
+    # values, witness, proof and publics of the first process batch
+    first_process: dict | None = None
+
+    def new_prover(self, device="cuda") -> PollProver:
+        """A fresh PollProver of the run's poll, seeded as the e2e's, with
+        the pallet's events replayed into it."""
+        poll = self.pallet.polls[0]
+        prover = PollProver(self.keys, self.coordinator.keypair, poll.config,
+                            poll_end_timestamp=poll.voting_period_end(),
+                            rng=random.Random(7), device=device)
+        prover.ingest_events(self.pallet.events, 0)
+        return prover
 
 
 def _clock(timings: dict, verbose: bool):
@@ -118,11 +131,8 @@ def run_reference_e2e(config: dict | None = None, verbose: bool = False,
         pallet.run_to_block(26)
         coordinator.merge_poll_state(pallet)
 
-    poll = pallet.polls[0]
-    prover = PollProver(keys, coordinator.keypair, poll.config,
-                        poll_end_timestamp=poll.voting_period_end(),
-                        rng=random.Random(7), device=device)
-    prover.ingest_events(pallet.events, 0)
+    run = E2ERun(timings, keys, pallet, coordinator)
+    prover = run.new_prover(device)
 
     with clock("witness_inputs"):
         process_batches, tally_batches, tb = prover.get_poll_results()
@@ -159,4 +169,5 @@ def run_reference_e2e(config: dict | None = None, verbose: bool = False,
     timings["total_s"] = round(sum(
         v for v in timings.values() if isinstance(v, float)), 3)
     timings["outcome"] = 5
-    return E2ERun(timings, keys, first)
+    run.first_process = first
+    return run

@@ -8,14 +8,22 @@ events, drains the process and tally batches exactly as the reference
 does, proves each batch with this package's `prove` and self-verifies it
 with the native pairing before it is handed on.
 
-Witnesses are computed in this process, one batch ahead of the proof in
-flight on a single worker thread (the reference's INFIMUM_PARALLEL_WITNESS=0
-branch): the reference's forked witness workers must not be used once CUDA
-is initialised in the parent.
+Witnesses come from forked worker processes (`witness/parallel.py`), as
+in the reference, streamed in order while the card proves. The workers are
+forked after CUDA is initialised in this process; a child runs only
+`circuit.assignment` (the native hint program or Python hints) and never
+touches the CUDA context. On an H100 host (`chip_smoke.py` phase 10) the
+reference-dims poll's 3 + 3 batches ran on 3 + 3 forked workers with no
+worker timing out, and gave the same batches, byte for byte, as the
+in-process path. With INFIMUM_PARALLEL_WITNESS=0, one CPU or a single
+batch, witnesses are computed in this process, one batch ahead of the
+proof in flight on a worker thread.
 """
 
 from __future__ import annotations
 
+import itertools
+import os
 import random
 import sys
 import time
@@ -133,7 +141,9 @@ class ProverKeys:
 
 class PollProver:
     """Per-poll proving session: replays events, emits proof batches and
-    the outcome."""
+    the outcome. `prove_poll_results` forks its witness workers from this
+    process with CUDA already initialised, which the card run allows: the
+    children never call torch (module note)."""
 
     def __init__(self, keys: ProverKeys, coordinator: Keypair, poll_config,
                  poll_end_timestamp: int, rng: random.Random | None = None,
@@ -191,16 +201,34 @@ class PollProver:
 
     def prove_poll_results(self):
         """(proof_batches, outcome) ready for commit_outcome: every batch as
-        (serialized proof, new commitment bytes), each witness computed on a
-        worker thread one batch ahead of the proof in flight."""
+        (serialized proof, new commitment bytes). Witnesses stream in order
+        from forked workers (witness/parallel.py iter_assignments) while
+        the card proves; with INFIMUM_PARALLEL_WITNESS=0, one CPU or a
+        single job, a worker thread computes each one batch ahead of the
+        proof in flight."""
         process_batches, tally_batches, tb = self.get_poll_results()
         jobs = [(self.keys.process_circuit, self.keys.process_pk, v, m)
                 for v, m in process_batches]
         jobs += [(self.keys.tally_circuit, self.keys.tally_pk, v, m)
                  for v, m in tally_batches]
-        with ThreadPoolExecutor(max_workers=1) as ex:
-            futs = iter([ex.submit(c.assignment, v) for c, _, v, _ in jobs])
-            batches = self._prove_stream(jobs, lambda: next(futs).result())
+
+        use_mp = (os.environ.get("INFIMUM_PARALLEL_WITNESS", "1") != "0"
+                  and (os.cpu_count() or 1) > 1 and len(jobs) > 1)
+        if use_mp:
+            from ..witness.parallel import iter_assignments
+
+            witnesses = itertools.chain(
+                iter_assignments(self.keys.process_circuit,
+                                 [v for v, _ in process_batches]),
+                iter_assignments(self.keys.tally_circuit,
+                                 [v for v, _ in tally_batches]))
+            batches = self._prove_stream(jobs, lambda: next(witnesses))
+        else:
+            with ThreadPoolExecutor(max_workers=1) as ex:
+                futs = iter([ex.submit(c.assignment, v)
+                             for c, _, v, _ in jobs])
+                batches = self._prove_stream(jobs,
+                                             lambda: next(futs).result())
         return batches, self._outcome(tb)
 
     def _prove_stream(self, jobs, next_witness):

@@ -40,7 +40,7 @@ from ..msm.msm import (
 from ..ntt.ntt import _root_of_unity, coset_ntt, coset_intt, intt
 from ..utils.profiling import Stopwatch
 from .r1cs import LC, ConstraintSystem
-from .rowval import SparseRows, eval_rows
+from .rowval import SparseRows, eval_rows, flatten_rows
 
 P = FR_MOD
 COSET_GEN = 5  # Fr's standard multiplicative generator (as arkworks)
@@ -193,7 +193,7 @@ def sparse_rows(cs: ConstraintSystem, device) -> SparseRows:
     key = str(torch.device(device))
     if key not in cache:
         rows = _qap_rows(cs)
-        cache[key] = SparseRows(rows, len(rows), device)
+        cache[key] = SparseRows(flatten_rows(rows), len(rows), device)
     return cache[key]
 
 
@@ -238,17 +238,27 @@ def _query_encoding(pk: ProvingKey, name: str, points, curve: CurveDev,
     return ent
 
 
-def _msm_async(pk: ProvingKey, name: str, points, scalars: torch.Tensor,
-               curve: CurveDev = G1_DEV):
-    """Dispatch one query's MSM without a host wait; `scalars` is (n, 16)
-    standard-form limbs on the query's device. Returns a closure that waits
-    and combines the window sums into the affine result."""
+def _msm_inputs(pk: ProvingKey, name: str, points, scalars: torch.Tensor,
+                curve: CurveDev = G1_DEV):
+    """(rows, scalars, lanes) of one query's MSM on the scalars' device:
+    the query's encoding, and `scalars` ((n, 16) standard-form limbs)
+    padded with zeros to its rows, zero at its infinity points."""
     rows, none_mask, lanes = _query_encoding(pk, name, points, curve,
                                              scalars.device)
     n = scalars.shape[0]
     sc = torch.zeros((rows.shape[0], NLIMBS), dtype=torch.int64,
                      device=scalars.device)
     sc[:n] = torch.where(none_mask[:n].unsqueeze(-1), 0, scalars)
+    return rows, sc, lanes
+
+
+def _msm_async(pk: ProvingKey, name: str, points, scalars: torch.Tensor,
+               curve: CurveDev = G1_DEV):
+    """Dispatch one query's MSM without a host wait; `pk` is a ProvingKey
+    or a ZkeyData, `scalars` (n, 16) standard-form limbs on the query's
+    device. Returns a closure that waits and combines the window sums into
+    the affine result."""
+    rows, sc, lanes = _msm_inputs(pk, name, points, scalars, curve)
     wins = msm_rows_async(rows, sc, lanes, curve.name)
     return lambda: combine_window_points(wins.cpu(), curve.name)
 

@@ -23,30 +23,42 @@ P = FR_MOD
 TERM_CHUNK = 1 << 18
 
 
-class SparseRows:
-    """Flattened (coeff, col, row) triples of the A/B/C matrices, on one
-    device, coefficients in Montgomery form."""
+def flatten_rows(rows) -> dict:
+    """{"A" | "B" | "C": (coeffs, cols, rows)} lists of the terms of R1CS
+    rows given as (a, b, c) triples of LCs."""
+    mats = {}
+    for name, idx in (("A", 0), ("B", 1), ("C", 2)):
+        coeffs, cols, rids = [], [], []
+        for j, triple in enumerate(rows):
+            terms = triple[idx].terms
+            coeffs.extend(terms.values())
+            cols.extend(terms.keys())
+            rids.extend([j] * len(terms))
+        mats[name] = (coeffs, cols, rids)
+    return mats
 
-    def __init__(self, rows, num_rows: int, device="cpu"):
+
+class SparseRows:
+    """Flattened (coeff, col, row) triples of sparse matrices, on one
+    device, coefficients in Montgomery form. `mats` maps each matrix's
+    name to its (coeffs, cols, rows) lists: `flatten_rows` of an R1CS, or
+    a snarkjs .zkey's A and B triples (any order, repeats summed)."""
+
+    def __init__(self, mats: dict, num_rows: int, device="cpu"):
         self.num_rows = num_rows
         self.device = device
         self.mats = {}
-        for name, idx in (("A", 0), ("B", 1), ("C", 2)):
-            coeffs, cols, rids = [], [], []
-            for j, triple in enumerate(rows):
-                terms = triple[idx].terms
-                if len(terms) >= 1 << 16:
-                    raise ValueError("row too long for one-limb carry fold")
-                coeffs.extend(terms.values())
-                cols.extend(terms.keys())
-                rids.extend([j] * len(terms))
+        for name, (coeffs, cols, rids) in mats.items():
+            rid = torch.tensor(rids, dtype=torch.int64)
+            if rids and int(torch.bincount(rid).max()) >= 1 << 16:
+                raise ValueError("row too long for one-limb carry fold")
             std = ints_to_tensor([c % P for c in coeffs], device)
             self.mats[name] = (
                 torch.cat([FR_CTX.to_mont(std[i:i + TERM_CHUNK])
                            for i in range(0, len(coeffs), TERM_CHUNK)])
                 if coeffs else std,
                 torch.tensor(cols, dtype=torch.int64, device=device),
-                torch.tensor(rids, dtype=torch.int64, device=device),
+                rid.to(device),
             )
 
 
@@ -78,7 +90,8 @@ def _eval_mat(coeffs, cols, rids, w_mont, m):
 
 
 def eval_rows(sp: SparseRows, witness: list[int], m: int):
-    """(a, b, c) as (m, 16) reduced Montgomery tensors on sp.device."""
+    """One (m, 16) reduced Montgomery tensor on sp.device per matrix of
+    `sp`, in order: (a, b, c), or (a, b) from a zkey."""
     w_mont = FR_CTX.to_mont(ints_to_tensor([x % P for x in witness],
                                            sp.device))
-    return tuple(_eval_mat(*sp.mats[name], w_mont, m) for name in "ABC")
+    return tuple(_eval_mat(*mat, w_mont, m) for mat in sp.mats.values())

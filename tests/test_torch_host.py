@@ -2,10 +2,11 @@
 
 `infimum_tpu_torch` keeps its own copy of each pure-Python host module it
 needs (fields, Poseidon, cipher, keys, trees, serialization, circuits,
-witnesses). Each case runs one piece of work through the copy and through
-the original on the same inputs, from numpy seeds, and the results must be
-equal: hashes, ciphertexts, roots, bytes, constraint counts and a witness
-at small dims."""
+witnesses, the byte-level Poseidon API, point compression). Each case runs
+one piece of work through the copy and through the original on the same
+inputs, from numpy seeds, and the results must be equal: hashes,
+ciphertexts, roots, bytes, error classes in their order, constraint counts
+and witnesses at small dims."""
 
 import importlib
 import random
@@ -120,9 +121,50 @@ def process_witness(m):
             circ.public_inputs(values), meta["new_commitment"], w)
 
 
+def poseidon_bytes(m):
+    """Digests in both endiannesses, and each error class, with its
+    fields, in the reference's check order."""
+    b = m("hash.bytes")
+    xs = _fr(70, 3)
+    be = b.hash_bytes_be([x.to_bytes(32, "big") for x in xs])
+    le = b.hash_bytes_le([x.to_bytes(32, "little") for x in xs])
+    assert be == le[::-1]
+    errors = []
+    for inputs in ([b""], [bytes(31)], [bytes(33)], [bytes(32)] * 13,
+                   [bytes(32), b""], [bytes(31), bytes(33)],
+                   [bytes(33), bytes(31)]):
+        for fn in (b.hash_bytes_be, b.hash_bytes_le):
+            with pytest.raises(b.PoseidonError) as e:
+                fn(inputs)
+            errors.append((type(e.value).__name__, str(e.value),
+                           vars(e.value)))
+    return be, le, errors
+
+
+def pointbits(m):
+    """point2bits_strict / bits2point_strict: constraint counts, the
+    witness and the packed bits of a point."""
+    bjj, r1cs = m("curve.babyjubjub"), m("groth16.r1cs")
+    g = m("circuits.pointbits_gadget")
+    p = bjj.mul(bjj.BASE8, 777)
+    cs = r1cs.ConstraintSystem()
+    xin, yin = cs.alloc_public(), cs.alloc_public()
+    bits = g.point2bits_strict(cs, (r1cs.LC.var(xin), r1cs.LC.var(yin)))
+    n_pack = len(cs.constraints)
+    x2, y2 = g.bits2point_strict(cs, bits)
+    cs.enforce_zero(x2 - r1cs.LC.var(xin))
+    cs.enforce_zero(y2 - r1cs.LC.var(yin))
+    w = cs.compute_witness({xin: p[0], yin: p[1]})
+    assert cs.check(w)
+    packed = sum(int(b.eval(w)) << k for k, b in enumerate(bits))
+    assert packed == bjj.pack_point(p)
+    return n_pack, len(cs.constraints), cs.num_vars, packed, w
+
+
 CASES = {f.__name__: f for f in (poseidon_widths, cipher, trees, arkworks,
                                  zeros_and_keys, tally_witness,
-                                 process_witness)}
+                                 process_witness, poseidon_bytes,
+                                 pointbits)}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

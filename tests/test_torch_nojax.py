@@ -4,11 +4,13 @@ The machine with the GPU has no JAX, and the port keeps its own copies of
 the host layers it needs, so neither `jax` nor `infimum_tpu` may be
 imported by it. A subprocess installs a meta-path finder that refuses both,
 imports the package, its end-to-end and scale-poll clients, user roles,
-pallet, key cache, stage trace, pairing and its Poseidon and tree modules,
-builds the toy circuit with the port's own r1cs, sets it up through the key
-cache (a miss, then a hit), proves it on the CPU, verifies it natively and
-by the pure-Python pairing, and checks that no `jax*` or `infimum_tpu*`
-module was loaded."""
+pallet, key cache, stage trace, pairing, its Poseidon and tree modules, the
+zkey path, the byte-level Poseidon API, point compression and the witness
+workers, builds the toy circuit with the port's own r1cs, sets it up
+through the key cache (a miss, then a hit), proves it on the CPU, verifies
+it natively and by the pure-Python pairing, then generates its zkey, writes
+and reads it, proves from it and verifies, and checks that no `jax*` or
+`infimum_tpu*` module was loaded."""
 
 import os
 import subprocess
@@ -37,15 +39,21 @@ SCRIPT = textwrap.dedent("""
     import infimum_tpu_torch.client.prover
     import infimum_tpu_torch.client.scale
     import infimum_tpu_torch.client.user
+    import infimum_tpu_torch.circuits.pointbits_gadget
     import infimum_tpu_torch.curve.pairing
+    import infimum_tpu_torch.hash.bytes
     import infimum_tpu_torch.hash.poseidon
+    import infimum_tpu_torch.io.snarkjs_json
+    import infimum_tpu_torch.witness.parallel
     import infimum_tpu_torch.pallet
     import infimum_tpu_torch.pallet.dispatch
     import infimum_tpu_torch.parallel.tree
     import infimum_tpu_torch.utils.profiling
     from infimum_tpu_torch.groth16 import groth16 as g16
     from infimum_tpu_torch.groth16.pkcache import setup_cached
+    from infimum_tpu_torch.groth16 import zkey
     from infimum_tpu_torch.groth16.r1cs import ConstraintSystem, LC
+    from infimum_tpu_torch.io import snarkjs
     from infimum_tpu_torch.io.arkworks import (
         deserialize_proof, serialize_proof,
     )
@@ -68,6 +76,11 @@ SCRIPT = textwrap.dedent("""
     assert g16.verify(pk.vk, again, [21, 10])
     assert not g16.verify(pk.vk, again, [22, 10])
     assert g16.verify_py(pk.vk, again, [21, 10])
+    zk = snarkjs.read_zkey(snarkjs.write_zkey(
+        zkey.generate_zkey(cs, random.Random(44), device="cpu")))
+    zproof = zkey.prove_zkey(zk, w, random.Random(45), device="cpu")
+    assert g16.verify(zkey.vk_from_zkey(zk), zproof, [21, 10])
+    assert not g16.verify(zkey.vk_from_zkey(zk), zproof, [22, 10])
     loaded = [m for m in sys.modules if m.split(".")[0] in REFUSED]
     assert not loaded, loaded
     print("NOJAX-OK")

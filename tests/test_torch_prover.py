@@ -7,7 +7,9 @@ process first, so they equal the reference's setup on the same rng;
 `prewarm` proves each circuit once over a zero witness, and on a card
 builds the kernels and logs one entry a CUDA source from
 `kernels.BUILD_INFO`; `_prove_one` and `_prove_stream` give the
-reference's proof bytes on the same rng. All equalities are exact."""
+reference's proof bytes on the same rng; `prove_poll_results` gives the
+same batches with forked witness workers and on a thread. All equalities
+are exact."""
 
 import random
 from types import SimpleNamespace
@@ -149,3 +151,38 @@ def test_prove_methods_match_reference(which, monkeypatch):
     if which == "stream":
         assert [c for _, c in out[0]] == [fr_to_hash_bytes(123),
                                           fr_to_hash_bytes(456)]
+
+
+def test_prove_poll_results_workers_match_thread(monkeypatch):
+    """prove_poll_results with forked witness workers (the default) and
+    with INFIMUM_PARALLEL_WITNESS=0 gives the same batches on the same rng;
+    the workers' path streams each circuit's batches through
+    iter_assignments once, the thread's never."""
+    from infimum_tpu_torch.witness import parallel
+
+    keys, calls = _port_keys(), []
+    real = parallel.iter_assignments
+
+    def recording(circuit, batch_values, processes=None):
+        calls.append(len(batch_values))
+        return real(circuit, batch_values, processes)
+
+    monkeypatch.setattr(parallel, "iter_assignments", recording)
+    monkeypatch.setattr(port.os, "cpu_count", lambda: 2)
+    out = {}
+    for mode in ("1", "0"):
+        monkeypatch.setenv("INFIMUM_PARALLEL_WITNESS", mode)
+        pp = port.PollProver(keys, None, CONFIG, poll_end_timestamp=25,
+                             rng=random.Random(5), device="cpu")
+        pp.get_poll_results = lambda: (
+            [(None, {"new_commitment": 1}), (None, {"new_commitment": 2})],
+            [(None, {"new_commitment": 3})], None)
+        pp._outcome = lambda tb: "outcome"
+        fell = parallel.FALLBACK_BATCHES
+        out[mode] = (pp.prove_poll_results(), list(calls))
+        assert parallel.FALLBACK_BATCHES == fell
+        calls.clear()
+    assert out["1"][0] == out["0"][0]
+    assert [c for _, c in out["1"][0][0]] == [fr_to_hash_bytes(i)
+                                              for i in (1, 2, 3)]
+    assert out["1"][1] == [2, 1] and out["0"][1] == []
