@@ -60,13 +60,15 @@ Phases, in order; any failure raises and exits nonzero:
      the read zkey (the first encodes the queries, the second is steady),
      each proof verified by the native pairing under `vk_from_zkey` and
      through the arkworks bytes, a tampered proof and a wrong public input
-     rejected, all four MSM kernel instances launched; each MSM kernel
-     held against its plain version at the zkey's `h` shape (2^18 rows);
+     rejected, all four MSM kernel instances launched; three steady
+     `prove()` and `prove_zkey` calls of that witness in turns, each with
+     its stage trace; each MSM kernel held against its plain version at
+     the zkey's `h` shape (2^18 rows);
  10. the parallel witness: `PollProver.prove_poll_results` of the e2e's
-     poll with forked witness workers and with INFIMUM_PARALLEL_WITNESS=0,
-     each from a fresh prover with the e2e's seed, the batches equal byte
-     for byte, no batch fallen back to the parent within a 120 s timeout,
-     both wall times and the worker count printed.
+     poll with forked witness workers (INFIMUM_PARALLEL_WITNESS=1) and on
+     its default thread, each from a fresh prover with the e2e's seed, the
+     batches equal byte for byte, no batch fallen back to the parent
+     within a 120 s timeout, both wall times and the worker count printed.
 The last three lines of standard output are a JSON line with each kernel's
 launches, error, times and bound, then the card's name and power limit;
 the very last line is the result: {"ok": true, "device": {...}}.
@@ -798,8 +800,10 @@ def zkey_phase(run, mul_rate) -> None:
     the e2e's first process witness from the read zkey (the first encodes
     its queries), each proof verified by the native pairing and through
     the arkworks bytes, a tampered proof and a wrong public input
-    rejected, all four MSM kernel instances launched; then each MSM kernel
-    held against its plain version at the zkey's `h` shape."""
+    rejected, all four MSM kernel instances launched; three steady
+    `prove()` and `prove_zkey` calls of that witness in turns, with their
+    stage traces; then each MSM kernel held against its plain version at
+    the zkey's `h` shape."""
     import dataclasses
     import tempfile
 
@@ -870,6 +874,27 @@ def zkey_phase(run, mul_rate) -> None:
         f"and through the arkworks bytes; tampered proof and wrong public "
         f"input rejected; kernel launches {launches}; card {card_line()}")
 
+    # the same witness through prove() and prove_zkey in turns, each with
+    # its stage trace
+    pk = run.keys.process_pk
+    turns = {"prove": [], "prove_zkey": []}
+    for _ in range(3):
+        for name, call in (
+                ("prove", lambda: g16.prove(pk, cs, witness, device="cuda")),
+                ("prove_zkey", lambda: Z.prove_zkey(back, witness,
+                                                    device="cuda"))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            turns[name].append(((time.perf_counter() - t0) * 1e3,
+                                g16.LAST_PROVE_TRACE))
+    for name, runs in turns.items():
+        med = sorted(t for t, _ in runs)[1]
+        log(f"[zkey] steady {name} in turns: median {med:.1f} ms of "
+            f"{', '.join(f'{t:.1f}' for t, _ in runs)}; stage traces (s): "
+            f"{'; '.join(json.dumps(tr) for _, tr in runs)}")
+
     p_odd = Z.odd_coset_rows(back, witness, "cuda")
     rows, sc, lanes = g16._msm_inputs(back, "h", back.h_query, p_odd, G1_DEV)
     msm_kernels("h", G1_DEV, rows, sc, lanes, mul_rate, tag="zkey ",
@@ -878,12 +903,13 @@ def zkey_phase(run, mul_rate) -> None:
 
 def parallel_phase(run) -> None:
     """Phase 10: `prove_poll_results` of the e2e's poll with forked
-    witness workers and with INFIMUM_PARALLEL_WITNESS=0, each from a fresh
-    prover with the e2e's seed; equal batches byte for byte (every proof
-    self-verified inside), equal outcomes, the workers' path taken once a
-    circuit, no batch fallen back, all four MSM kernel instances launched
-    in each run."""
+    witness workers (INFIMUM_PARALLEL_WITNESS=1) and on its default
+    thread, each from a fresh prover with the e2e's seed; equal batches
+    byte for byte (every proof self-verified inside), equal outcomes, the
+    workers' path taken once a circuit, no batch fallen back, all four MSM
+    kernel instances launched in each run."""
     from infimum_tpu_torch import kernels
+    from infimum_tpu_torch.client.e2e import poll_prover
     from infimum_tpu_torch.witness import parallel as WP
 
     saved = {k: os.environ.get(k) for k in ("INFIMUM_PARALLEL_WITNESS",
@@ -899,9 +925,13 @@ def parallel_phase(run) -> None:
     os.environ["INFIMUM_WITNESS_TIMEOUT"] = str(WITNESS_TIMEOUT_S)
     WP.iter_assignments = recording
     try:
-        for mode in ("1", "0"):
-            os.environ["INFIMUM_PARALLEL_WITNESS"] = mode
-            prover = run.new_prover("cuda")
+        for mode in ("1", None):
+            if mode is None:
+                os.environ.pop("INFIMUM_PARALLEL_WITNESS", None)
+            else:
+                os.environ["INFIMUM_PARALLEL_WITNESS"] = mode
+            prover = poll_prover(run.keys, run.pallet, run.coordinator,
+                                 "cuda")
             fell = WP.FALLBACK_BATCHES
             kernels.reset_counts()
             torch.cuda.synchronize()
@@ -926,7 +956,7 @@ def parallel_phase(run) -> None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-    workers, thread = out["1"], out["0"]
+    workers, thread = out["1"], out[None]
     if workers[0] != thread[0] or workers[1] != thread[1]:
         raise AssertionError("worker and thread runs differ")
     if len(workers[3]) != 2 or thread[3]:

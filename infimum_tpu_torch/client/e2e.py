@@ -40,18 +40,19 @@ class E2ERun:
     keys: ProverKeys
     pallet: InfimumPallet
     coordinator: Coordinator
-    # values, witness, proof and publics of the first process batch
-    first_process: dict | None = None
+    first_process: dict     # values, witness, proof, publics of batch 0
 
-    def new_prover(self, device="cuda") -> PollProver:
-        """A fresh PollProver of the run's poll, seeded as the e2e's, with
-        the pallet's events replayed into it."""
-        poll = self.pallet.polls[0]
-        prover = PollProver(self.keys, self.coordinator.keypair, poll.config,
-                            poll_end_timestamp=poll.voting_period_end(),
-                            rng=random.Random(7), device=device)
-        prover.ingest_events(self.pallet.events, 0)
-        return prover
+
+def poll_prover(keys: ProverKeys, pallet: InfimumPallet,
+                coordinator: Coordinator, device) -> PollProver:
+    """The e2e's PollProver (seed 7) with the pallet's events of poll 0
+    replayed into it; a fresh one replays the same poll again."""
+    poll = pallet.polls[0]
+    prover = PollProver(keys, coordinator.keypair, poll.config,
+                        poll_end_timestamp=poll.voting_period_end(),
+                        rng=random.Random(7), device=device)
+    prover.ingest_events(pallet.events, 0)
+    return prover
 
 
 def _clock(timings: dict, verbose: bool):
@@ -131,8 +132,7 @@ def run_reference_e2e(config: dict | None = None, verbose: bool = False,
         pallet.run_to_block(26)
         coordinator.merge_poll_state(pallet)
 
-    run = E2ERun(timings, keys, pallet, coordinator)
-    prover = run.new_prover(device)
+    prover = poll_prover(keys, pallet, coordinator, device)
 
     with clock("witness_inputs"):
         process_batches, tally_batches, tb = prover.get_poll_results()
@@ -169,5 +169,4 @@ def run_reference_e2e(config: dict | None = None, verbose: bool = False,
     timings["total_s"] = round(sum(
         v for v in timings.values() if isinstance(v, float)), 3)
     timings["outcome"] = 5
-    run.first_process = first
-    return run
+    return E2ERun(timings, keys, pallet, coordinator, first)

@@ -8,16 +8,19 @@ events, drains the process and tally batches exactly as the reference
 does, proves each batch with this package's `prove` and self-verifies it
 with the native pairing before it is handed on.
 
-Witnesses come from forked worker processes (`witness/parallel.py`), as
-in the reference, streamed in order while the card proves. The workers are
-forked after CUDA is initialised in this process; a child runs only
-`circuit.assignment` (the native hint program or Python hints) and never
-touches the CUDA context. On an H100 host (`chip_smoke.py` phase 10) the
-reference-dims poll's 3 + 3 batches ran on 3 + 3 forked workers with no
-worker timing out, and gave the same batches, byte for byte, as the
-in-process path. With INFIMUM_PARALLEL_WITNESS=0, one CPU or a single
-batch, witnesses are computed in this process, one batch ahead of the
-proof in flight on a worker thread.
+Witnesses are computed in this process on a worker thread, ahead of the
+proof in flight on the card: at the measured traffic a process witness
+(0.44-0.84 s on an H100 host) is shorter than its proof, so the thread
+hides every witness after the first. INFIMUM_PARALLEL_WITNESS=1 takes the
+reference's path instead, forked worker processes (`witness/parallel.py`)
+streamed in order; the children run only `circuit.assignment` (the native
+hint program or Python hints) and never touch the CUDA context this
+process holds. On an H100 host (`chip_smoke.py` phase 10) the
+reference-dims poll's 3 + 3 batches ran on forked workers with no worker
+timing out and gave the same batches, byte for byte, as the thread, but
+1.1-1.9 s slower over the 6 batches. Where the workers would gain, a
+witness that outlasts its proof, was not measured, so they stay off by
+default (the reference defaults them on).
 """
 
 from __future__ import annotations
@@ -141,9 +144,10 @@ class ProverKeys:
 
 class PollProver:
     """Per-poll proving session: replays events, emits proof batches and
-    the outcome. `prove_poll_results` forks its witness workers from this
-    process with CUDA already initialised, which the card run allows: the
-    children never call torch (module note)."""
+    the outcome. With INFIMUM_PARALLEL_WITNESS=1, `prove_poll_results`
+    forks its witness workers from this process with CUDA already
+    initialised, which the card run allows: the children never call torch
+    (module note)."""
 
     def __init__(self, keys: ProverKeys, coordinator: Keypair, poll_config,
                  poll_end_timestamp: int, rng: random.Random | None = None,
@@ -201,18 +205,18 @@ class PollProver:
 
     def prove_poll_results(self):
         """(proof_batches, outcome) ready for commit_outcome: every batch as
-        (serialized proof, new commitment bytes). Witnesses stream in order
-        from forked workers (witness/parallel.py iter_assignments) while
-        the card proves; with INFIMUM_PARALLEL_WITNESS=0, one CPU or a
-        single job, a worker thread computes each one batch ahead of the
-        proof in flight."""
+        (serialized proof, new commitment bytes). A worker thread computes
+        the witnesses ahead of the proof in flight; with
+        INFIMUM_PARALLEL_WITNESS=1, more than one CPU and more than one
+        job, they stream in order from forked workers
+        (witness/parallel.py iter_assignments) instead."""
         process_batches, tally_batches, tb = self.get_poll_results()
         jobs = [(self.keys.process_circuit, self.keys.process_pk, v, m)
                 for v, m in process_batches]
         jobs += [(self.keys.tally_circuit, self.keys.tally_pk, v, m)
                  for v, m in tally_batches]
 
-        use_mp = (os.environ.get("INFIMUM_PARALLEL_WITNESS", "1") != "0"
+        use_mp = (os.environ.get("INFIMUM_PARALLEL_WITNESS", "0") == "1"
                   and (os.cpu_count() or 1) > 1 and len(jobs) > 1)
         if use_mp:
             from ..witness.parallel import iter_assignments

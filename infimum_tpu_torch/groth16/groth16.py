@@ -7,10 +7,11 @@ same randomness and the same proofs:
     reduction with the extra public-input rows), every key element a
     fixed-base product on `device` (msm/fixed_base.py).
   - prove(): row evaluation and the H pipeline (3 iNTT + 3 coset NTT, the
-    pointwise step and one coset iNTT) stay on `device`; the five MSMs
-    (a, b1, l, h over G1 and b2 over G2) are dispatched before any host
-    wait, through the CUDA MSM kernels on a card; the proof is assembled on
-    the host. Its four stages (`h_dispatch`, `witness_limbs`,
+    pointwise step and one coset iNTT, `ab_minus_c`) stay on `device`; the
+    five MSMs (a, b1, l, h over G1 and b2 over G2) are dispatched before
+    any host wait, through the CUDA MSM kernels on a card; the proof is
+    assembled on the host (`prove_queries`, which groth16/zkey.py's
+    prove_zkey shares). Its four stages (`h_dispatch`, `witness_limbs`,
     `msm_dispatch`, `msm_wait`) are recorded in LAST_PROVE_TRACE, with no
     sync between them.
   - verify(): the native C++ pairing (`native`), which reads the keys and
@@ -45,8 +46,8 @@ from .rowval import SparseRows, eval_rows, flatten_rows
 P = FR_MOD
 COSET_GEN = 5  # Fr's standard multiplicative generator (as arkworks)
 
-# stage timings of the most recent prove() call (utils/profiling.Stopwatch
-# as_dict), under the reference's stage names
+# stage timings of the most recent prove() or prove_zkey() call
+# (utils/profiling.Stopwatch as_dict), under the reference's stage names
 LAST_PROVE_TRACE: dict = {}
 
 
@@ -197,17 +198,27 @@ def sparse_rows(cs: ConstraintSystem, device) -> SparseRows:
     return cache[key]
 
 
+def ab_minus_c(abc: torch.Tensor, logm: int, g: int,
+               divide_z: bool) -> torch.Tensor:
+    """(m, 16) standard-form limbs from (3, m) Montgomery evaluations of
+    a, b, c on the domain: one batched iNTT, one coset NTT with generator
+    `g`, then a.b - c on that coset; with `divide_z`, divided by Z there
+    and taken back to coefficients by a coset iNTT (h's coefficients)."""
+    ev = coset_ntt(intt(abc, logm), logm, g)           # 3 transforms batched
+    out = FR_CTX.sub(FR_CTX.mont_mul(ev[0], ev[1]), ev[2])
+    if divide_z:
+        z_inv = fr_inv((pow(g, 1 << logm, P) - 1) % P)
+        out = coset_intt(FR_CTX.mont_mul(out, FR_CTX.encode(
+            [z_inv], abc.device)[0]), logm, g)
+    return FR_CTX.from_mont(out)
+
+
 def h_rows(cs: ConstraintSystem, witness: list[int], device) -> torch.Tensor:
     """(m, 16) standard-form limbs of h's coefficients on `device`: the
     h-MSM's scalars. Row m-1 must be zero (the caller's degree gate)."""
     m = _domain_size(cs)
-    logm = m.bit_length() - 1
     abc = torch.stack(eval_rows(sparse_rows(cs, device), witness, m))
-    ev = coset_ntt(intt(abc, logm), logm, COSET_GEN)   # 3 transforms batched
-    prod = FR_CTX.sub(FR_CTX.mont_mul(ev[0], ev[1]), ev[2])
-    z_inv = fr_inv((pow(COSET_GEN, m, P) - 1) % P)
-    h_evals = FR_CTX.mont_mul(prod, FR_CTX.encode([z_inv], device)[0])
-    return FR_CTX.from_mont(coset_intt(h_evals, logm, COSET_GEN))
+    return ab_minus_c(abc, m.bit_length() - 1, COSET_GEN, divide_z=True)
 
 
 def compute_h(cs: ConstraintSystem, witness: list[int], device="cuda"):
@@ -263,31 +274,36 @@ def _msm_async(pk: ProvingKey, name: str, points, scalars: torch.Tensor,
     return lambda: combine_window_points(wins.cpu(), curve.name)
 
 
-def prove(pk: ProvingKey, cs: ConstraintSystem, witness: list[int],
-          rng: random.Random | None = None, device="cuda") -> Proof:
+def prove_queries(key, queries, h_scalars, witness: list[int], npub: int,
+                  rng: random.Random | None, device) -> Proof:
+    """The Groth16 prover over one key's five queries. `key` (a ProvingKey
+    or a ZkeyData) holds alpha_g1, beta_g1, beta_g2, delta_g1, delta_g2
+    and the queries' cached encodings; `queries` is the (name, points) of
+    its a, b1, b2 (G2), c and h queries; `h_scalars()` gives the h-MSM's
+    scalars and a row that must be zero (the degree gate), or None. Draws
+    r, s from `rng` first, records its stages in LAST_PROVE_TRACE."""
     global LAST_PROVE_TRACE
     sw = Stopwatch()
     rng = rng or random.SystemRandom()
     r = rng.randrange(P)
     s = rng.randrange(P)
-    npub = cs.num_public + 1
-    m = _domain_size(cs)
+    (a_q, b1_q, b2_q, c_q, h_q) = queries
 
     # No sync between the stages, as in the reference: the host waits for
     # the card only where it reads back (the degree gate, the combines).
     with sw.stage("h_dispatch"):
-        h = h_rows(cs, witness, device)
+        h, gate = h_scalars()
     with sw.stage("witness_limbs"):
         w = ints_to_tensor([x % P for x in witness], device)
     with sw.stage("msm_dispatch"):
-        a_fin = _msm_async(pk, "a", pk.a_query, w)
-        b2_fin = _msm_async(pk, "b2", pk.b_g2_query, w, G2_DEV)
-        b1_fin = _msm_async(pk, "b1", pk.b_g1_query, w)
-        c_fin = _msm_async(pk, "l", pk.l_query, w[npub:])
-        h_fin = _msm_async(pk, "h", pk.h_query, h[:m - 1])
+        a_fin = _msm_async(key, *a_q, w)
+        b2_fin = _msm_async(key, *b2_q, w, G2_DEV)
+        b1_fin = _msm_async(key, *b1_q, w)
+        c_fin = _msm_async(key, *c_q, w[npub:])
+        h_fin = _msm_async(key, *h_q, h)
     with sw.stage("msm_wait"):
         # degree gate: one row read back, queued behind the MSM dispatches
-        if bool(h[m - 1].any()):
+        if gate is not None and bool(gate.any()):
             raise AssertionError("h has unexpected degree")
         a_acc, b2_acc, b1_acc = a_fin(), b2_fin(), b1_fin()
         c_acc, h_acc = c_fin(), h_fin()
@@ -296,16 +312,30 @@ def prove(pk: ProvingKey, cs: ConstraintSystem, witness: list[int],
         print(sw.report(), file=sys.stderr, flush=True)
 
     # A = alpha + sum + r*delta
-    pi_a = g1_add(g1_add(pk.alpha_g1, a_acc), g1_mul_fast(pk.delta_g1, r))
+    pi_a = g1_add(g1_add(key.alpha_g1, a_acc), g1_mul_fast(key.delta_g1, r))
     # B = beta + sum + s*delta
-    pi_b = g2_add(g2_add(pk.beta_g2, b2_acc), g2_mul_fast(pk.delta_g2, s))
-    b_g1 = g1_add(g1_add(pk.beta_g1, b1_acc), g1_mul_fast(pk.delta_g1, s))
+    pi_b = g2_add(g2_add(key.beta_g2, b2_acc), g2_mul_fast(key.delta_g2, s))
+    b_g1 = g1_add(g1_add(key.beta_g1, b1_acc), g1_mul_fast(key.delta_g1, s))
     # C = L + H + s*A + r*B1 - r*s*delta
     pi_c = g1_add(c_acc, h_acc)
     pi_c = g1_add(pi_c, g1_mul_fast(pi_a, s))
     pi_c = g1_add(pi_c, g1_mul_fast(b_g1, r))
-    pi_c = g1_add(pi_c, g1_neg(g1_mul_fast(pk.delta_g1, r * s % P)))
+    pi_c = g1_add(pi_c, g1_neg(g1_mul_fast(key.delta_g1, r * s % P)))
     return Proof(a=pi_a, b=pi_b, c=pi_c)
+
+
+def prove(pk: ProvingKey, cs: ConstraintSystem, witness: list[int],
+          rng: random.Random | None = None, device="cuda") -> Proof:
+    m = _domain_size(cs)
+
+    def h_scalars():
+        h = h_rows(cs, witness, device)
+        return h[:m - 1], h[m - 1]
+
+    return prove_queries(
+        pk, (("a", pk.a_query), ("b1", pk.b_g1_query), ("b2", pk.b_g2_query),
+             ("l", pk.l_query), ("h", pk.h_query)),
+        h_scalars, witness, cs.num_public + 1, rng, device)
 
 
 def prepare_inputs(vk: VerifyingKey, public_inputs: list[int]):

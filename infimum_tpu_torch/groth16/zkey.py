@@ -11,13 +11,15 @@ prove_zkey, on `device`:
      device); c|_H = a|_H . b|_H pointwise: the zkey holds no C matrix, and
      a satisfied R1CS makes the product exact on the domain.
   2. P = a.b - c on the odd coset {eta w^i}, eta = w_2m: one batched iNTT
-     of the three, one coset NTT with generator eta, the pointwise step.
+     of the three, one coset NTT with generator eta, the pointwise step
+     (groth16.ab_minus_c, as prove()'s H pipeline but without its tail).
      The zkey's H points are that coset's Lagrange basis folded with
      Z(tau)/(-2 delta) (io/snarkjs.py), so P's m values are the h-MSM's
      scalars as they stand: no coset iNTT, no division by Z.
   3. The five MSMs (a, b1, c, h over G1, b2 over G2) through the CUDA MSM
      kernels on a card, their query encodings cached on the zkey; the r, s
-     blinding and the assembly exactly as groth16.prove.
+     blinding, the assembly and the stage trace are groth16.prove's own
+     (`prove_queries`).
 """
 
 from __future__ import annotations
@@ -26,17 +28,16 @@ import random
 
 import torch
 
-from ..curve.bn254_host import (
-    G1_GEN, G2_GEN, g1_add, g1_mul_fast, g1_neg, g2_add, g2_mul_fast,
-)
+from ..curve.bn254_host import G1_GEN, G2_GEN, g1_mul_fast, g2_mul_fast
 from ..curve.proj import G1_DEV, G2_DEV
 from ..ff.bn254 import FR_MOD, fr_inv
-from ..ff.fp import FR_CTX, ints_to_tensor
+from ..ff.fp import FR_CTX
 from ..io.snarkjs import ZkeyData
 from ..msm.fixed_base import fixed_base_mul_batch
-from ..ntt.ntt import _root_of_unity, coset_ntt, intt
+from ..ntt.ntt import _root_of_unity
 from .groth16 import (
-    Proof, VerifyingKey, _msm_async, lagrange_at, qap_polys_at_tau,
+    Proof, VerifyingKey, ab_minus_c, lagrange_at, prove_queries,
+    qap_polys_at_tau,
 )
 from .r1cs import ConstraintSystem
 from .rowval import SparseRows, eval_rows
@@ -129,34 +130,16 @@ def odd_coset_rows(zk: ZkeyData, witness: list[int], device) -> torch.Tensor:
         raise ValueError("zkey domain size must be a power of two")
     a, b = eval_rows(zkey_rows(zk, device), witness, m)
     abc = torch.stack([a, b, FR_CTX.mont_mul(a, b)])
-    ev = coset_ntt(intt(abc, logm), logm, _root_of_unity(2 * m))
-    return FR_CTX.from_mont(FR_CTX.sub(FR_CTX.mont_mul(ev[0], ev[1]), ev[2]))
+    return ab_minus_c(abc, logm, _root_of_unity(2 * m), divide_z=False)
 
 
 def prove_zkey(zk: ZkeyData, witness: list[int],
                rng: random.Random | None = None, device="cuda") -> Proof:
     """A proof under vk_from_zkey(zk); draws r, s from `rng` as the
-    reference does, so one seed gives the reference's proof."""
-    rng = rng or random.SystemRandom()
-    r = rng.randrange(P)
-    s = rng.randrange(P)
-    npub = zk.n_public + 1
-
-    p_odd = odd_coset_rows(zk, witness, device)
-    w = ints_to_tensor([x % P for x in witness], device)
-    a_fin = _msm_async(zk, "a", zk.a_query, w)
-    b2_fin = _msm_async(zk, "b2", zk.b2_query, w, G2_DEV)
-    b1_fin = _msm_async(zk, "b1", zk.b1_query, w)
-    c_fin = _msm_async(zk, "c", zk.c_query, w[npub:])
-    h_fin = _msm_async(zk, "h", zk.h_query, p_odd)
-    a_acc, b2_acc, b1_acc = a_fin(), b2_fin(), b1_fin()
-    c_acc, h_acc = c_fin(), h_fin()
-
-    pi_a = g1_add(g1_add(zk.alpha_g1, a_acc), g1_mul_fast(zk.delta_g1, r))
-    pi_b = g2_add(g2_add(zk.beta_g2, b2_acc), g2_mul_fast(zk.delta_g2, s))
-    b_g1 = g1_add(g1_add(zk.beta_g1, b1_acc), g1_mul_fast(zk.delta_g1, s))
-    pi_c = g1_add(c_acc, h_acc)
-    pi_c = g1_add(pi_c, g1_mul_fast(pi_a, s))
-    pi_c = g1_add(pi_c, g1_mul_fast(b_g1, r))
-    pi_c = g1_add(pi_c, g1_neg(g1_mul_fast(zk.delta_g1, r * s % P)))
-    return Proof(a=pi_a, b=pi_b, c=pi_c)
+    reference does, so one seed gives the reference's proof. Its stages
+    are recorded in groth16.LAST_PROVE_TRACE, as prove()'s are."""
+    return prove_queries(
+        zk, (("a", zk.a_query), ("b1", zk.b1_query), ("b2", zk.b2_query),
+             ("c", zk.c_query), ("h", zk.h_query)),
+        lambda: (odd_coset_rows(zk, witness, device), None),
+        witness, zk.n_public + 1, rng, device)

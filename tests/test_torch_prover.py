@@ -154,10 +154,10 @@ def test_prove_methods_match_reference(which, monkeypatch):
 
 
 def test_prove_poll_results_workers_match_thread(monkeypatch):
-    """prove_poll_results with forked witness workers (the default) and
-    with INFIMUM_PARALLEL_WITNESS=0 gives the same batches on the same rng;
-    the workers' path streams each circuit's batches through
-    iter_assignments once, the thread's never."""
+    """prove_poll_results with forked witness workers
+    (INFIMUM_PARALLEL_WITNESS=1) and on the thread (the default, and =0)
+    gives the same batches on the same rng; the workers' path streams each
+    circuit's batches through iter_assignments once, the thread's never."""
     from infimum_tpu_torch.witness import parallel
 
     keys, calls = _port_keys(), []
@@ -170,8 +170,11 @@ def test_prove_poll_results_workers_match_thread(monkeypatch):
     monkeypatch.setattr(parallel, "iter_assignments", recording)
     monkeypatch.setattr(port.os, "cpu_count", lambda: 2)
     out = {}
-    for mode in ("1", "0"):
-        monkeypatch.setenv("INFIMUM_PARALLEL_WITNESS", mode)
+    for mode in ("1", "0", None):
+        if mode is None:
+            monkeypatch.delenv("INFIMUM_PARALLEL_WITNESS", raising=False)
+        else:
+            monkeypatch.setenv("INFIMUM_PARALLEL_WITNESS", mode)
         pp = port.PollProver(keys, None, CONFIG, poll_end_timestamp=25,
                              rng=random.Random(5), device="cpu")
         pp.get_poll_results = lambda: (
@@ -182,7 +185,7 @@ def test_prove_poll_results_workers_match_thread(monkeypatch):
         out[mode] = (pp.prove_poll_results(), list(calls))
         assert parallel.FALLBACK_BATCHES == fell
         calls.clear()
-    assert out["1"][0] == out["0"][0]
+    assert out["1"][0] == out["0"][0] == out[None][0]
     assert [c for _, c in out["1"][0][0]] == [fr_to_hash_bytes(i)
                                               for i in (1, 2, 3)]
-    assert out["1"][1] == [2, 1] and out["0"][1] == []
+    assert out["1"][1] == [2, 1] and out["0"][1] == out[None][1] == []

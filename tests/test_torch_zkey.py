@@ -120,6 +120,19 @@ def test_port_zkey_proof_verifies(case):
     assert not port_g16.verify(vk, tampered, publics)
 
 
+def test_prove_zkey_records_stage_trace():
+    """prove_zkey records prove()'s four stages in LAST_PROVE_TRACE."""
+    cs, inputs, _ = _circuit("toy")
+    zk = port_zkey.generate_zkey(cs, random.Random(SEEDS["toy"]),
+                                 device="cpu")
+    port_g16.LAST_PROVE_TRACE = {}
+    port_zkey.prove_zkey(zk, cs.compute_witness(inputs), random.Random(9),
+                         device="cpu")
+    assert list(port_g16.LAST_PROVE_TRACE) == [
+        "h_dispatch", "witness_limbs", "msm_dispatch", "msm_wait"]
+    assert all(v >= 0 for v in port_g16.LAST_PROVE_TRACE.values())
+
+
 @pytest.fixture(scope="module")
 def toy_proofs():
     """The toy circuit's proof from both packages' prove_zkey, seed 9."""
