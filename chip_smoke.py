@@ -68,9 +68,28 @@ Phases, in order; any failure raises and exits nonzero:
      poll with forked witness workers (INFIMUM_PARALLEL_WITNESS=1) and on
      its default thread, each from a fresh prover with the e2e's seed, the
      batches equal byte for byte, no batch fallen back to the parent
-     within a 120 s timeout, both wall times and the worker count printed.
+     within a 120 s timeout, both wall times and the worker count printed;
+ 11. the multi-GPU slice: `infimum_tpu_torch.parallel` over
+     torch.distributed, one spawned process a rank (NCCL at D = 1; D = 2
+     and 4 over NCCL where there are as many cards, else over gloo on the
+     cards there are; the quinary tree's D = 5 over gloo), the inputs
+     reaching the ranks through files: the sharded MSM of the process
+     key's `h` rows with the first witness's H scalars (weak, 2^18 a rank,
+     and strong, 2^18 over D), of those rows tiled to 2^20 with scalars
+     from a seed, and of the `b2` query (141,312 G2 rows), by both
+     reductions, each equal as an affine point to the one-card MSM of the
+     same rows; the 2^18 NTT forward equal to the one-card `ntt` in k-form
+     and its round trip exact; the poll's (2, 10) tree at D = 1, 2, 4 and
+     (5, 6) tree at D = 1, 5 equal to phase 7's native roots; every rank's
+     launch counts gathered (all four MSM kernel instances on every rank
+     of an MSM run, the Poseidon kernel on every rank of a tree run) and
+     no JAX on any rank; the bytes each reduction moved equal to
+     `reduction_comm_bytes`; each world's backend, cards and per-rank
+     CUDA-event ms, and one `msm_scaling` record line.
+`python3 chip_smoke.py --multi-gpu` runs phases 1-3, 7(a) and 11 only:
+the run on several cards, where phases 4-10 would repeat one card's.
 The last three lines of standard output are a JSON line with each kernel's
-launches, error, times and bound, then the card's name and power limit;
+launches (phase 11's summed over its ranks), error, times and bound, then the card's name and power limit;
 the very last line is the result: {"ok": true, "device": {...}}.
 """
 
@@ -84,6 +103,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as tnf
 
@@ -437,7 +457,8 @@ def poll_trees(native):
     """Phase 7(a): the largest legal poll's leaves and trees through the
     kernel, held against the native library, and every launch's state held
     against the plain version. Returns (the kernel's launches in this phase,
-    largest error against plain)."""
+    largest error against plain, {arity: (depth, the padded leaves, the
+    native root)} of the two trees)."""
     from infimum_tpu_torch import kernels
     from infimum_tpu_torch.ff.bn254 import FR_MOD
     from infimum_tpu_torch.ff.fp import words_to_limbs
@@ -525,7 +546,12 @@ def poll_trees(native):
         f"{t4 - t3:.3f}s; leaves and both roots equal native; every "
         f"launch's state equals the plain version, max abs err {err}; each "
         f"launch's t x B and CUDA-event time: {', '.join(shapes)}")
-    return launches, err
+    reg_leaves = [zeros2] + signup_leaves
+    trees = {2: (10, reg_leaves + [zeros2] * (1024 - len(reg_leaves)),
+                 reg.root),
+             5: (6, msg_leaves + [zeros5] * (5 ** 6 - len(msg_leaves)),
+                 msg.root)}
+    return launches, err, trees
 
 
 def perm_bound(t: int, b: int, words, out, mul_rate):
@@ -972,13 +998,326 @@ def parallel_phase(run) -> None:
         f"launches {workers[4]} / {thread[4]}; card {card_line()}")
 
 
+# -- phase 11: the multi-GPU slice ------------------------------------------------
+
+MULTI_SEED = 20260822
+WEAK_ROWS = 1 << 18              # the process key's h query
+NTT_LOGN = 18                    # the process circuit's domain
+MSM_CASES = (                    # (case, input set, rows a rank: None = shard)
+    ("weak", "h", WEAK_ROWS), ("strong", "h", None),
+    ("g1_2^20", "g1_2^20", None), ("g2_b2", "b2", None))
+MULTI_REPS = 3
+
+
+def _random_fr(rng, n: int) -> torch.Tensor:
+    """(n, 16) int64 limbs of values below 2^253 < r, from numpy's `rng`."""
+    limbs = rng.integers(0, 1 << 16, (n, 16), dtype=np.int64)
+    limbs[:, 15] &= (1 << 13) - 1
+    return torch.from_numpy(limbs)
+
+
+def multi_inputs(run, trees, tmp: str):
+    """Phase 11's inputs as files of 32-bit words under `tmp`, and their
+    one-card results: {set: (curve, rows file, scalars file, rows)} for the
+    MSMs (the process key's `h` query with the first witness's H scalars;
+    those rows tiled to 2^20 with scalars from a seed, zero at the zero
+    rows that pad the query; the `b2` query with the witness), the NTT's
+    input and one-card output, and the poll's trees. The expected points
+    are the one-card `msm_rows_async` + `combine_window_points` of the
+    same rows."""
+    from infimum_tpu_torch.ff.fp import FR_CTX, limbs_to_words
+    from infimum_tpu_torch.msm import msm as M
+    from infimum_tpu_torch.ntt.ntt import ntt
+
+    def save(name, limbs):
+        path = os.path.join(tmp, f"{name}.npy")
+        np.save(path, limbs_to_words(limbs).cpu().numpy())
+        return path
+
+    q = {name: (curve.name, rows, sc) for name, curve, rows, sc, _ in
+         query_inputs(run.keys.process_pk, run.keys.process_circuit.cs,
+                      run.first_process["witness"]) if name in ("h", "b2")}
+    rng = np.random.default_rng(MULTI_SEED)
+    h_rows = q["h"][1]
+    if h_rows.shape[0] != WEAK_ROWS:
+        raise AssertionError(f"h query has {h_rows.shape[0]} rows")
+    # the query's zero rows pad it to its lanes: they keep zero scalars
+    tiled = h_rows.repeat(4, 1)
+    fresh = _random_fr(rng, 4 * WEAK_ROWS).cuda()
+    q["g1_2^20"] = ("g1", tiled, torch.where(
+        (tiled == 0).all(1, keepdim=True), 0, fresh))
+    files, want = {}, {}
+    t0 = time.perf_counter()
+    for name, (curve, rows, sc) in q.items():
+        files[name] = (curve, save(f"{name}_rows", rows),
+                       save(f"{name}_sc", sc), rows.shape[0])
+        lanes = M.msm_lanes(rows.shape[0], curve)
+        want[name] = M.combine_window_points(
+            M.msm_rows_async(rows, sc, lanes, curve).cpu(), curve)
+    a = _random_fr(rng, 1 << NTT_LOGN).cuda()      # Montgomery values < r
+    files["ntt"] = (save("ntt_in", a), save("ntt_out", ntt(a, NTT_LOGN)))
+    for arity, (depth, leaves, root) in trees.items():
+        files["tree", arity] = (depth, save(f"tree{arity}",
+                                            FR_CTX.encode(leaves, "cuda")))
+        want["tree", arity] = root
+    torch.cuda.synchronize()
+    log(f"[multi] inputs written and one-card results in "
+        f"{time.perf_counter() - t0:.1f}s: h {WEAK_ROWS} G1 rows, 2^20 G1 "
+        f"rows (h tiled, scalars from seed {MULTI_SEED}), b2 "
+        f"{q['b2'][1].shape[0]} G2 rows, NTT 2^{NTT_LOGN}, trees (2, 10) "
+        f"and (5, 6)")
+    return files, want
+
+
+def _load_words(path, sl, device) -> torch.Tensor:
+    """Rows `sl` of a words file, as limbs on `device`."""
+    from infimum_tpu_torch.ff.fp import words_to_limbs
+
+    rows = np.load(path, mmap_mode="r")[sl]
+    return words_to_limbs(torch.from_numpy(np.array(rows)).to(device))
+
+
+def _timed(mesh, fn):
+    """(median CUDA-event ms of MULTI_REPS runs of fn() after one warm run,
+    each begun by a barrier of the group; the last result; the bytes the
+    collectives sent and received in one run)."""
+    from infimum_tpu_torch.parallel import distributed as D
+
+    times = []
+    mesh.sent = mesh.received = 0
+    for i in range(MULTI_REPS + 1):
+        D.barrier(mesh)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize(mesh.device)
+        if i:
+            times.append(start.elapsed_time(end))
+    runs = MULTI_REPS + 1
+    return (sorted(times)[len(times) // 2], out, mesh.sent // runs,
+            mesh.received // runs)
+
+
+def multi_rank(mesh, files, work) -> dict:
+    """One rank of a phase-11 world: its shard of every case of `work`
+    through the port's sharded MSM (both reductions), NTT and trees on its
+    card, with its launch counts from just before to just after."""
+    from infimum_tpu_torch import kernels
+    from infimum_tpu_torch.ff.fp import FR_CTX
+    from infimum_tpu_torch.msm.msm import SPECS, combine_window_points
+    from infimum_tpu_torch.parallel import distributed as D
+    from infimum_tpu_torch.parallel import msm as PM
+    from infimum_tpu_torch.parallel import ntt as PN
+    from infimum_tpu_torch.parallel import tree as PT
+
+    kernels.library()
+    dev = mesh.device
+    out = {"rank": mesh.rank, "device": str(dev),
+           "card": torch.cuda.get_device_name(dev), "msm": {}, "tree": {}}
+    kernels.reset_counts()
+    if work["msm"]:
+        for case, name, per_rank in MSM_CASES:
+            curve, rows_f, sc_f, n = files[name]
+            if per_rank:                 # weak: the set once a rank
+                sl = slice(0, per_rank)
+            else:
+                sl = D.host_shard(n, mesh)
+            rows, sc = _load_words(rows_f, sl, dev), _load_words(sc_f, sl,
+                                                                  dev)
+            for mode in ("gather", "permute"):
+                fn = PM.make_sharded_window_sums(mesh, curve, reduce=mode)
+                ms, wins, sent, got = _timed(mesh, lambda: fn(rows, sc))
+                point = (None if wins is None
+                         else combine_window_points(wins.cpu(), curve))
+                out["msm"][case, mode] = (ms, wins is not None, point, sent,
+                                          got)
+        # one complete add of a curve's window sums alone: a step of the
+        # reduction (plain torch, as many launches whatever the values)
+        for curve in ("g1", "g2"):
+            spec = SPECS[curve]
+            inf = spec.curve.infinity((spec.n_windows,), dev)
+            out["add_ms", curve] = cuda_ms(
+                lambda: spec.curve.add(inf, inf), MULTI_REPS, warm=1)[0]
+    if work["ntt"]:
+        fwd, logn2, logn1 = PN.make_ntt_sharded(mesh, NTT_LOGN)
+        inv = PN.make_intt_sharded(mesh, NTT_LOGN)
+        in_f, out_f = files["ntt"]
+        n2, n1 = 1 << logn2, 1 << logn1
+        cols = D.host_shard(n1, mesh)
+        rows = D.host_shard(n2, mesh)
+        a_l = _load_words(in_f, slice(None), dev).reshape(n2, n1, 16)[:, cols]
+        want = _load_words(out_f, slice(None), dev).reshape(n1, n2, 16)[
+            :, rows].transpose(0, 1)
+        fwd_ms, d_l, _, _ = _timed(mesh, lambda: fwd(a_l))
+        inv_ms, back, _, _ = _timed(mesh, lambda: inv(d_l))
+        out["ntt"] = (fwd_ms, inv_ms, bool(torch.equal(d_l, want)),
+                      bool(torch.equal(back, a_l)))
+    for arity in work["tree"]:
+        depth, leaves_f = files["tree", arity]
+        leaves = _load_words(leaves_f, D.host_shard(arity ** depth, mesh),
+                             dev)
+        build = PT.make_tree_builder(mesh, arity, depth)
+        ms, root, _, _ = _timed(mesh, lambda: build(leaves))
+        out["tree"][arity] = (ms, FR_CTX.decode(root)[0])
+    torch.cuda.synchronize(dev)
+    out["launches"] = kernels.launch_counts()
+    out["foreign"] = foreign_modules()
+    return out
+
+
+def multi_worlds(cards: int):
+    """(world size, backend, work) of phase 11: NCCL at D = 1; D = 2 and 4
+    over NCCL where there are as many cards, else over gloo; the quinary
+    tree's D = 5 over gloo. `work["tree"]` lists the trees' arities."""
+    worlds = [(1, "nccl", {"msm": True, "ntt": True, "tree": [2, 5]})]
+    for d in (2, 4):
+        worlds.append((d, "nccl" if cards >= d else "gloo",
+                       {"msm": True, "ntt": True, "tree": [2]}))
+    worlds.append((5, "gloo", {"msm": False, "ntt": False, "tree": [5]}))
+    return worlds
+
+
+def multi_gpu_phase(run, trees) -> dict:
+    """Phase 11: the port's `parallel/` over torch.distributed, one spawned
+    process a rank. Every result equal to its one-card result, every rank
+    of an MSM run launching all four MSM kernel instances and of a tree run
+    the Poseidon kernel, no JAX on any rank; prints each world's backend,
+    cards and per-rank CUDA-event ms, and the `msm_scaling` record. Returns
+    the ranks' launch counts, summed."""
+    import tempfile
+
+    from infimum_tpu_torch.curve.proj import CURVES
+    from infimum_tpu_torch.parallel import distributed as D
+    from infimum_tpu_torch.parallel.msm import reduction_comm_bytes
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    summed: dict = {}
+    rec = {"weak_ms_per_const_work": {}, "weak_n_per_device": WEAK_ROWS,
+           "strong_ms": {}, "strong_n": WEAK_ROWS, "g1_2^20_ms": {},
+           "g2_b2_ms": {}, "modes_ms": {}, "per_rank_ms": {},
+           "reduction_comm": {}, "reduction_add_ms": {},
+           "ntt_2^18_ms": {}, "tree_ms": {},
+           "backend": {}, "cards": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        files, want = multi_inputs(run, trees, tmp)
+        for d, backend, work in multi_worlds(cards):
+            w0 = time.perf_counter()
+            ranks = D.spawn(multi_rank, d, backend, "cuda", (files, work),
+                            timeout_s=600)
+            key = str(d)
+            rec["backend"][key] = backend
+            rec["cards"][key] = [r["device"] for r in ranks]
+            for r in ranks:
+                if r["foreign"]:
+                    raise AssertionError(f"rank {r['rank']} of {d} imported "
+                                         f"{r['foreign'][:5]}")
+                for k, n in r["launches"].items():
+                    summed[k] = summed.get(k, 0) + n
+                need = ([f"msm_{s}_{c}" for s in ("accum", "weighted")
+                         for c in ("g1", "g2")] if work["msm"] else []) + (
+                    ["poseidon_perm"] if work["tree"] else [])
+                idle = [k for k in need if r["launches"][k] == 0]
+                if idle:
+                    raise AssertionError(f"rank {r['rank']} of {d} never "
+                                         f"launched {idle}")
+            lines = []
+            for case, name, per_rank in MSM_CASES if work["msm"] else ():
+                curve = files[name][0]
+                expect = want[name]
+                if per_rank:             # every rank the same rows: d x P
+                    expect = CURVES[curve].host_mul(expect, d)
+                auto = reduction_comm_bytes(d, curve)["mode"]
+                for mode in ("gather", "permute"):
+                    res = [r["msm"][case, mode] for r in ranks]
+                    holders = [r for r, x in zip(ranks, res) if x[1]]
+                    if [r["rank"] for r in holders] != (
+                            list(range(d)) if mode == "gather" else [0]):
+                        raise AssertionError(f"{case} {mode}: held on "
+                                             f"{[r['rank'] for r in holders]}")
+                    if any(x[2] != expect for x in res if x[1]):
+                        raise AssertionError(f"{case} {mode} over {d} ranks "
+                                             f"differs from one card")
+                    model = reduction_comm_bytes(d, curve, mode)
+                    moved = max(x[4] for x in res)
+                    if moved != model["per_device_bytes"]:
+                        raise AssertionError(f"{case} {mode}: {moved} bytes "
+                                             f"received, model {model}")
+                    ms = [x[0] for x in res]
+                    rec["modes_ms"].setdefault(case, {}).setdefault(
+                        key, {})[mode] = max(ms)
+                    if mode == auto:
+                        rec["per_rank_ms"].setdefault(case, {})[key] = ms
+                        rec[{"weak": "weak_ms_per_const_work",
+                             "strong": "strong_ms"}.get(case, f"{case}_ms")
+                            ][key] = max(ms)
+                    lines.append(f"{case} {mode} {max(ms):.3f} ms (ranks "
+                                 + " / ".join(f"{m:.3f}" for m in ms)
+                                 + f"; {moved} B received)")
+                rec["reduction_comm"].setdefault(key, {})[curve] = {
+                    m: reduction_comm_bytes(d, curve, m)
+                    for m in (("gather", "permute") if d & (d - 1) == 0
+                              else ("gather",))}
+            if work["msm"]:
+                adds = {c: max(r["add_ms", c] for r in ranks)
+                        for c in ("g1", "g2")}
+                rec["reduction_add_ms"][key] = adds
+                lines.append(f"one complete add of the window sums alone "
+                             f"G1 {adds['g1']:.3f} / G2 {adds['g2']:.3f} ms")
+            if work["ntt"]:
+                res = [r["ntt"] for r in ranks]
+                if not all(x[2] and x[3] for x in res):
+                    raise AssertionError(f"NTT over {d} ranks: forward "
+                                         f"{[x[2] for x in res]}, round trip "
+                                         f"{[x[3] for x in res]}")
+                rec["ntt_2^18_ms"][key] = {
+                    "forward": max(x[0] for x in res),
+                    "inverse": max(x[1] for x in res)}
+                lines.append(f"NTT 2^{NTT_LOGN} forward "
+                             f"{max(x[0] for x in res):.3f} / inverse "
+                             f"{max(x[1] for x in res):.3f} ms, k-form equal "
+                             f"to one card, round trip exact")
+            for arity in work["tree"]:
+                res = [r["tree"][arity] for r in ranks]
+                if any(root != want["tree", arity] for _, root in res):
+                    raise AssertionError(f"tree ({arity}) over {d} ranks: "
+                                         f"root differs from native")
+                rec["tree_ms"].setdefault(str(arity), {})[key] = max(
+                    ms for ms, _ in res)
+                lines.append(f"tree ({arity}, {files['tree', arity][0]}) "
+                             f"{max(ms for ms, _ in res):.3f} ms, root equal "
+                             f"to phase 7's native root")
+            log(f"[multi] D = {d} over {backend} on "
+                f"{', '.join(rec['cards'][key])} ({ranks[0]['card']}), "
+                f"{time.perf_counter() - w0:.1f}s: " + "; ".join(lines))
+    shared = [k for k, devs in rec["cards"].items()
+              if len(set(devs)) < len(devs)]
+    rec.update(correct=True, card=card_line(), device_count=cards,
+               note=("CUDA-event ms, the slowest rank; worlds "
+                     f"{', '.join(shared) or 'none'} share cards (gloo, CUDA "
+                     "tensors staged through host memory): those prove the "
+                     "program and the kernels in several processes and are "
+                     "not a scaling figure"))
+    log(f"[multi] launches over every rank {json.dumps(summed)}; phase 11 "
+        f"{time.perf_counter() - t0:.1f}s")
+    log(f"[multi] record {json.dumps({'msm_scaling': rec})}")
+    return summed
+
+
 def foreign_modules() -> list[str]:
     return [m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "infimum_tpu")]
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     smoke_t0 = time.perf_counter()
+    if argv not in ([], ["--multi-gpu"]):
+        print("usage: chip_smoke.py [--multi-gpu]", file=sys.stderr)
+        return 2
+    multi_only = argv == ["--multi-gpu"]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1029,6 +1368,15 @@ def main() -> int:
     log(f"[e2e] verifier: native pairing ({native._LIB_PATH}); witness: "
         f"{'native hint program' if witness_native else 'python hints'}")
     log(f"[e2e] kernel launches: {launches}")
+    if multi_only:
+        # the phase's inputs: the e2e's key and witness, the poll's trees
+        _, _, trees = poll_trees(native)
+        multi_gpu_phase(run, trees)
+        print(card_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     batch_times(run.timings)
     e2e_records(run.timings)
     cache_hit(run, cache_before)
@@ -1066,7 +1414,7 @@ def main() -> int:
         "infimum_tpu module imported")
 
     # 7. Poseidon: the poll's trees, the benchmark's batch, every width
-    launches["poseidon_perm"], tree_err = poll_trees(native)
+    launches["poseidon_perm"], tree_err, trees = poll_trees(native)
     err, *rest = bench_batch(native, mul_rate)
     cmp["poseidon_perm"] = (max(err, tree_err), *rest)
     width_sweep(native)
@@ -1088,6 +1436,10 @@ def main() -> int:
     # 9. the zkey path; 10. the parallel witness
     zkey_phase(run, mul_rate)
     parallel_phase(run)
+
+    # 11. the multi-GPU slice; its ranks' launches join the report's
+    for name, n in multi_gpu_phase(run, trees).items():
+        launches[name] = launches.get(name, 0) + n
     if foreign_modules():
         raise AssertionError(f"JAX or infimum_tpu imported: "
                              f"{foreign_modules()[:5]}")
@@ -1111,4 +1463,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

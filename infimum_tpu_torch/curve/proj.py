@@ -14,7 +14,9 @@ from __future__ import annotations
 import torch
 
 from ..ff.bn254 import FQ_MOD, batch_inv_mod
-from ..ff.fp import FQ_CTX, NLIMBS, ints_to_tensor, tensor_to_ints
+from ..ff.fp import (
+    FQ_CTX, NLIMBS, device_key, ints_to_tensor, tensor_to_ints,
+)
 from ..ff.fq2 import FQ2_CTX
 from .bn254_host import (
     B2, G1_GEN, G2_GEN, _fq2_mul, g1_add, g1_double, g1_mul, g2_add,
@@ -39,7 +41,7 @@ class CurveDev:
 
     def b3(self, device):
         """3b in Montgomery form, shape (field shape)."""
-        key = str(torch.device(device))
+        key = device_key(device)
         t = self._b3_dev.get(key)
         if t is None:
             t = FQ_CTX.encode(list(self._b3), device).reshape(self.fshape())

@@ -23,6 +23,16 @@ from .limbs import (
 )
 
 
+def device_key(device) -> str:
+    """The name of one device, for the caches of tensors kept per device:
+    a bare "cuda" is the current card, so each rank of a process group
+    keys its constants on its own card."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return str(d)
+
+
 def int_limbs(x: int) -> list[int]:
     return [(x >> (LIMB_BITS * i)) & LIMB_MASK for i in range(NLIMBS)]
 
@@ -110,7 +120,7 @@ class FpCtx:
 
     def consts(self, device):
         """(N, N', R^2 mod N, 1 in Montgomery form) limb tensors on `device`."""
-        key = str(torch.device(device))
+        key = device_key(device)
         c = self._consts.get(key)
         if c is None:
             c = tuple(torch.tensor(int_limbs(v), dtype=torch.int64,

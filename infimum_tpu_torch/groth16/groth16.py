@@ -33,7 +33,9 @@ from ..curve.bn254_host import (
 )
 from ..curve.proj import G1_DEV, G2_DEV, CurveDev
 from ..ff.bn254 import FR_MOD, batch_inv_mod, fr_inv
-from ..ff.fp import FR_CTX, NLIMBS, ints_to_tensor, tensor_to_ints
+from ..ff.fp import (
+    FR_CTX, NLIMBS, device_key, ints_to_tensor, tensor_to_ints,
+)
 from ..msm.fixed_base import fixed_base_mul_batch
 from ..msm.msm import (
     combine_window_points, encode_rows, msm_lanes, msm_rows_async,
@@ -191,7 +193,7 @@ def setup(cs: ConstraintSystem, rng: random.Random | None = None,
 def sparse_rows(cs: ConstraintSystem, device) -> SparseRows:
     """A/B/C triples of `cs` on `device`, flattened once per device."""
     cache = cs.__dict__.setdefault("_torch_sparse_rows", {})
-    key = str(torch.device(device))
+    key = device_key(device)
     if key not in cache:
         rows = _qap_rows(cs)
         cache[key] = SparseRows(flatten_rows(rows), len(rows), device)
@@ -237,7 +239,7 @@ def _query_encoding(pk: ProvingKey, name: str, points, curve: CurveDev,
     encoded once per key; an infinity point is replaced by the generator
     and given a zero scalar."""
     cache = pk.__dict__.setdefault("_torch_enc_cache", {})
-    key = (name, str(torch.device(device)))
+    key = (name, device_key(device))
     ent = cache.get(key)
     if ent is None:
         lanes = msm_lanes(len(points), curve.name)

@@ -31,7 +31,7 @@ import torch
 from ..curve.bn254_host import G1_GEN, G2_GEN, g1_mul_fast, g2_mul_fast
 from ..curve.proj import G1_DEV, G2_DEV
 from ..ff.bn254 import FR_MOD, fr_inv
-from ..ff.fp import FR_CTX
+from ..ff.fp import FR_CTX, device_key
 from ..io.snarkjs import ZkeyData
 from ..msm.fixed_base import fixed_base_mul_batch
 from ..ntt.ntt import _root_of_unity
@@ -108,7 +108,7 @@ def vk_from_zkey(zk: ZkeyData) -> VerifyingKey:
 def zkey_rows(zk: ZkeyData, device) -> SparseRows:
     """The zkey's A and B triples on `device`, flattened once per device."""
     cache = zk.__dict__.setdefault("_torch_sparse_rows", {})
-    key = str(torch.device(device))
+    key = device_key(device)
     if key not in cache:
         mats = {"A": ([], [], []), "B": ([], [], [])}
         for mat, row, sig, val in zk.coeffs:

@@ -24,7 +24,9 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..ff.fp import FR_CTX, NLIMBS, limbs_to_words, words_to_limbs
+from ..ff.fp import (
+    FR_CTX, NLIMBS, device_key, limbs_to_words, words_to_limbs,
+)
 from ..ff.limbs import to_limbs
 from .grain import FULL_ROUNDS, MAX_WIDTH, PARTIAL_ROUNDS, poseidon_params
 from .poseidon_sparse import sparse_params
@@ -66,7 +68,7 @@ def tables(t: int, device, words: bool):
     (t R_F + R_P, W), (t, t, W), (t, t, W) and (R_P, 2t - 1, W), Montgomery
     form, each contiguous: W = 8 int32 words, the kernel's form, when
     `words`; else W = 16 int64 limbs, the plain version's."""
-    key = (t, str(torch.device(device)), words)
+    key = (t, device_key(device), words)
     if key not in _TABLES:
         sp = sparse_params(t)
         out = [_mont_limbs(x, "cpu") for x in (sp.c, sp.m, sp.p, sp.s)]
@@ -79,7 +81,7 @@ def tables(t: int, device, words: bool):
 def dense_tables(t: int, device):
     """(ark, mds) of the dense form as int64 Montgomery limbs on `device`:
     (rounds, t, 16) and (t, t, 16)."""
-    key = (t, str(torch.device(device)), "dense")
+    key = (t, device_key(device), "dense")
     if key not in _TABLES:
         ark, mds, _ = device_params(t)
         _TABLES[key] = tuple(torch.from_numpy(x.astype(np.int64)).to(device)

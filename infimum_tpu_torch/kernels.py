@@ -8,7 +8,9 @@ and keyed on their keys. So an edited source rebuilds its own object only,
 and an unchanged library is loaded as it is. The library is bound with
 `ctypes`: pointers and the stream go as `c_void_p`, sizes as `c_int`. Each
 C entry point launches on the stream it is given and returns
-`cudaGetLastError()`, and the wrapper raises when that is not 0.
+`cudaGetLastError()`, and the wrapper raises when that is not 0. A launch
+goes to the card its tensors lie on, with that card current, whichever
+card the calling thread had current.
 
 `Kernel.launches` counts the launches of one kernel instance (an MSM
 kernel for one curve, the Poseidon permutation for every width; its
@@ -48,12 +50,18 @@ class Kernel:
         self.launches = 0
 
     def __call__(self, *args):
-        """Launch on the current stream; `args` are tensors then ints."""
+        """Launch on the tensors' card, on its current stream; `args` are
+        tensors then ints. The tensors must all lie on one card."""
+        devices = {a.device for a in args if isinstance(a, torch.Tensor)}
+        if len(devices) != 1 or next(iter(devices)).type != "cuda":
+            raise ValueError(f"{self.symbol}: want tensors on one card, got "
+                             f"{sorted(map(str, devices))}")
+        dev = devices.pop()
         fn = getattr(library(), self.symbol)
-        stream = torch.cuda.current_stream().cuda_stream
         ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
                 for a in args]
-        rc = fn(*ptrs, stream)
+        with torch.cuda.device(dev):
+            rc = fn(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{self.symbol} launch failed: cudaError {rc}")
         self.launches += 1

@@ -16,7 +16,7 @@ import torch
 
 from ..curve.proj import CURVES, CurveDev, G1_DEV
 from ..ff.bn254 import FR_MOD
-from ..ff.fp import NLIMBS, ints_to_tensor
+from ..ff.fp import NLIMBS, device_key, ints_to_tensor
 from ..ff.limbs import LIMB_BITS
 
 CHUNK = 1 << 17
@@ -57,7 +57,7 @@ def fixed_base_mul_batch(scalars, curve: CurveDev = G1_DEV, device="cuda",
     """[s * GEN for s in scalars] as host affine points (None for 0)."""
     if not scalars:
         return []
-    tab = _window_table(curve.name, c, str(torch.device(device)))
+    tab = _window_table(curve.name, c, device_key(device))
     sc = ints_to_tensor([s % FR_MOD for s in scalars], device)
     parts = [_mul_chunk(curve, tab, sc[i:i + CHUNK], c)
              for i in range(0, sc.shape[0], CHUNK)]

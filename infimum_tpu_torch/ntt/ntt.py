@@ -18,7 +18,7 @@ import torch
 from ..ff.bn254 import (
     FR_MOD, FR_TWO_ADIC_ROOT, FR_TWO_ADICITY, fr_inv,
 )
-from ..ff.fp import FR_CTX, NLIMBS
+from ..ff.fp import FR_CTX, NLIMBS, device_key
 
 
 def _root_of_unity(n: int) -> int:
@@ -68,15 +68,11 @@ def _coset_consts(logn: int, g: int, invert: bool, device: str):
                          device)
 
 
-def _key(a: torch.Tensor) -> str:
-    return str(a.device)
-
-
 def ntt(a: torch.Tensor, logn: int, invert: bool = False) -> torch.Tensor:
     """NTT over the second-last dim of (..., n, 16) Montgomery limbs:
     out[i] = sum_j a_j w^(ij); with `invert`, the inverse (1/n folded in)."""
     n = 1 << logn
-    rev, tw, n_inv = _stage_consts(logn, invert, _key(a))
+    rev, tw, n_inv = _stage_consts(logn, invert, device_key(a.device))
     batch = a.shape[:-2]
     a = a[..., rev, :]
     for s in range(1, logn + 1):
@@ -97,11 +93,11 @@ def intt(a: torch.Tensor, logn: int) -> torch.Tensor:
 
 def coset_ntt(a: torch.Tensor, logn: int, g: int) -> torch.Tensor:
     """Evaluate on the coset g<w>: NTT(a_i g^i)."""
-    return ntt(FR_CTX.mont_mul(a, _coset_consts(logn, g, False, _key(a))),
+    return ntt(FR_CTX.mont_mul(a, _coset_consts(logn, g, False, device_key(a.device))),
                logn)
 
 
 def coset_intt(a: torch.Tensor, logn: int, g: int) -> torch.Tensor:
     """Inverse of coset_ntt."""
     return FR_CTX.mont_mul(intt(a, logn),
-                           _coset_consts(logn, g, True, _key(a)))
+                           _coset_consts(logn, g, True, device_key(a.device)))

@@ -1,1 +1,2 @@
-"""Tree building over the device (one card in this package)."""
+"""Sharding over a process group (torch.distributed): the MSM, the NTT and
+the Merkle build, one rank a card."""

@@ -6,6 +6,7 @@ touches. The stand-in writes each output file and logs what it compiled."""
 import sys
 
 import pytest
+import torch
 
 from infimum_tpu_torch import kernels
 
@@ -73,3 +74,14 @@ def test_port_sources_key_on_field_header():
     assert len(set(keys.values())) == len(keys)
     for src in kernels.SOURCES:
         assert '#include "field.cuh"' in (kernels.CSRC / src).read_text()
+
+
+def test_kernel_refuses_tensors_off_one_card():
+    """A launch goes to the card its tensors lie on: tensors on two devices,
+    or on none that is a card, are refused before the library is loaded."""
+    k = kernels.Kernel("inf_none", 2, 1)
+    for a, b in ((torch.zeros(1), torch.zeros(1, device="meta")),
+                 (torch.zeros(1), torch.zeros(1))):
+        with pytest.raises(ValueError, match="one card"):
+            k(a, b, 1)
+    assert k.launches == 0

@@ -5,12 +5,14 @@ the host layers it needs, so neither `jax` nor `infimum_tpu` may be
 imported by it. A subprocess installs a meta-path finder that refuses both,
 imports the package, its end-to-end and scale-poll clients, user roles,
 pallet, key cache, stage trace, pairing, its Poseidon and tree modules, the
-zkey path, the byte-level Poseidon API, point compression and the witness
-workers, builds the toy circuit with the port's own r1cs, sets it up
-through the key cache (a miss, then a hit), proves it on the CPU, verifies
-it natively and by the pure-Python pairing, then generates its zkey, writes
-and reads it, proves from it and verifies, and checks that no `jax*` or
-`infimum_tpu*` module was loaded."""
+zkey path, the byte-level Poseidon API, point compression, the witness
+workers and the sharded layer (`parallel/{distributed,msm,ntt,tree}`, run
+in a one-rank gloo group: an MSM, a tree and an NTT round trip), builds
+the toy circuit with the port's own r1cs, sets it up through the key cache
+(a miss, then a hit), proves it on the CPU, verifies it natively and by
+the pure-Python pairing, then generates its zkey, writes and reads it,
+proves from it and verifies, and checks that no `jax*` or `infimum_tpu*`
+module was loaded."""
 
 import os
 import subprocess
@@ -48,6 +50,8 @@ SCRIPT = textwrap.dedent("""
     import infimum_tpu_torch.pallet
     import infimum_tpu_torch.pallet.dispatch
     import infimum_tpu_torch.parallel.tree
+    from infimum_tpu_torch.curve.bn254_host import G1_GEN, g1_mul
+    from infimum_tpu_torch.parallel import distributed, msm, ntt, tree
     import infimum_tpu_torch.utils.profiling
     from infimum_tpu_torch.groth16 import groth16 as g16
     from infimum_tpu_torch.groth16.pkcache import setup_cached
@@ -81,6 +85,14 @@ SCRIPT = textwrap.dedent("""
     zproof = zkey.prove_zkey(zk, w, random.Random(45), device="cpu")
     assert g16.verify(zkey.vk_from_zkey(zk), zproof, [21, 10])
     assert not g16.verify(zkey.vk_from_zkey(zk), zproof, [22, 10])
+    mesh = distributed.join_group("gloo", 1, 0, "cpu",
+                                  store=distributed.dist.HashStore())
+    pts = [g1_mul(G1_GEN, k) for k in (3, 5)]
+    assert msm.msm_sharded(pts, [2, 7], mesh) == g1_mul(G1_GEN, 41)
+    assert tree.sharded_tree_root(mesh, 2, 2, [1, 2, 3]) == \
+        tree.host_tree_root(2, 2, [1, 2, 3])
+    assert ntt.intt_roundtrip_sharded(list(range(4)), mesh) == [0, 1, 2, 3]
+    distributed.dist.destroy_process_group()
     loaded = [m for m in sys.modules if m.split(".")[0] in REFUSED]
     assert not loaded, loaded
     print("NOJAX-OK")
