@@ -24,13 +24,25 @@ Phases, in order; any failure raises and exits nonzero:
      kernel held against its plain torch version (equal emitted digits and
      limbs, equal window points as affine points) and timed; the weighted
      kernel's grid (at least one block per SM) and the adds its chunks cost
-     beside the bound's; then the median of three steady `prove()` calls
-     of the first process batch with their stage traces, and the H
-     pipeline's host enqueue time beside its span on the card;
+     beside the bound's; the H pipeline's kernels (`csrc/fr_rows.cu`,
+     `csrc/fr_ntt.cu`) at the process circuit's shape (2^18, B = 3, the
+     first process witness) and the tally circuit's (2^14, a witness from
+     a seed): the witness's encoding (pointwise x R^2), the row launch,
+     the coset NTT's tile launch and last stage, the coset iNTT's last
+     stage with its output factors and the pointwise step a.b - c, each
+     equal to its plain version bit for bit and timed beside its bound and
+     its plain time, then the whole `h_rows` equal to `h_rows_plain` with
+     its launches counted against the plan, its time beside the sum of
+     its launches' bounds and the function's own bound; then the
+     median of three steady `prove()` calls of the first process batch
+     with their stage traces, the H pipeline's host enqueue time beside
+     its span on the card, every kernel's launches in one steady prove and
+     a profiled steady prove's device kernel count and busy time;
   5. negative checks: a tampered proof and a wrong public input are
      rejected;
-  6. path checks: every MSM kernel was launched in the e2e run, and no
-     module of JAX or of the JAX package `infimum_tpu` was imported;
+  6. path checks: every MSM kernel and every H pipeline kernel was
+     launched in the e2e run, and no module of JAX or of the JAX package
+     `infimum_tpu` was imported;
   7. Poseidon on the card: (a) the largest legal poll's trees, 1,022
      sign-up leaves in the binary depth-10 registration tree and 15,624
      message leaves in the quinary depth-6 message tree, every leaf batch
@@ -63,7 +75,9 @@ Phases, in order; any failure raises and exits nonzero:
      rejected, all four MSM kernel instances launched; three steady
      `prove()` and `prove_zkey` calls of that witness in turns, each with
      its stage trace; each MSM kernel held against its plain version at
-     the zkey's `h` shape (2^18 rows);
+     the zkey's `h` shape (2^18 rows); the H kernels at the zkey's odd
+     coset (A and B rows, c = a.b, generator w_2m, no division by Z), as
+     in phase 4, and `odd_coset_rows` against `odd_coset_rows_plain`;
  10. the parallel witness: `PollProver.prove_poll_results` of the e2e's
      poll with forked witness workers (INFIMUM_PARALLEL_WITNESS=1) and on
      its default thread, each from a fresh prover with the e2e's seed, the
@@ -82,7 +96,8 @@ Phases, in order; any failure raises and exits nonzero:
      and its round trip exact; the poll's (2, 10) tree at D = 1, 2, 4 and
      (5, 6) tree at D = 1, 5 equal to phase 7's native roots; every rank's
      launch counts gathered (all four MSM kernel instances on every rank
-     of an MSM run, the Poseidon kernel on every rank of a tree run) and
+     of an MSM run, the NTT's tile launch on every rank of an NTT run, the
+     Poseidon kernel on every rank of a tree run) and
      no JAX on any rank; the bytes each reduction moved equal to
      `reduction_comm_bytes`; each world's backend, cards and per-rank
      CUDA-event ms, and one `msm_scaling` record line.
@@ -119,6 +134,16 @@ KERNEL_ROWS = (
      "infimum_tpu/msm/pallas_msm.py:380"),
     ("poseidon_perm", "infimum_tpu_torch/csrc/poseidon_perm.cu",
      "infimum_tpu/hash/poseidon_pallas.py:236"),
+    # counterparts of the JAX package's compiled H stage (XLA programs,
+    # not Pallas kernels): row evaluation, the NTT family, the pointwise step
+    ("fr_rows", "infimum_tpu_torch/csrc/fr_rows.cu",
+     "infimum_tpu/groth16/rowval.py:92"),
+    ("fr_ntt_tile", "infimum_tpu_torch/csrc/fr_ntt.cu",
+     "infimum_tpu/ntt/ntt.py:121"),
+    ("fr_ntt_stage", "infimum_tpu_torch/csrc/fr_ntt.cu",
+     "infimum_tpu/ntt/ntt.py:121"),
+    ("fr_pointwise", "infimum_tpu_torch/csrc/fr_ntt.cu",
+     "infimum_tpu/groth16/groth16.py:386"),
 )
 # Bounds: the larger of bytes over the memory rate and 32-bit multiplies
 # over their rate. HBM3 of an H100 SXM: 3.35 TB/s (NVIDIA's data sheet).
@@ -139,6 +164,7 @@ MIXED_MULS = {"g1": 11, "g2": 11 * 3 + 2 * 3}
 SIGNUPS, MESSAGES = 1022, 15624   # client/scale.py: the largest legal poll
 POLL_SEED, BENCH_SEED = 20260820, 20260819
 ZKEY_SEED = 20260821
+H_SEED = 20260823
 WITNESS_TIMEOUT_S = 120
 
 
@@ -392,8 +418,11 @@ def weighted_grid(name, spec, cdig, bound_adds, tag="") -> None:
 def steady_prove(pk, cs, witness, publics) -> float:
     """Median of three `prove()` calls of one batch by the CUDA-synchronised
     host clock, in ms, each with its stage trace; the last proof must
-    verify. Then the H pipeline alone, three times: the host's time to
-    enqueue it beside the card's span by CUDA events."""
+    verify. Then the H pipeline alone, three times from the witness's
+    ints and three times from its words on the card: the host's time to
+    enqueue it beside the card's span by CUDA events, and the host's one
+    conversion of the witness; then every kernel's launches in one steady
+    prove and a profiled steady prove."""
     from infimum_tpu_torch.groth16 import groth16 as g16
 
     runs = []
@@ -411,22 +440,345 @@ def steady_prove(pk, cs, witness, publics) -> float:
         f"run's stage trace (s): {'; '.join(json.dumps(tr) for _, tr in runs)}"
         f"; card {card_line()}")
     # the H pipeline alone: the host's time to enqueue it against the
-    # card's span from its first launch to its last
-    spans = []
+    # card's span from its first launch to its last, from the witness's
+    # ints (the host's conversion included, as `h_dispatch` pays it) and
+    # from its words on the card (the kernels' launches alone)
+    from infimum_tpu_torch.groth16.rowval import ints_to_words
+
+    conv = []
     for _ in range(3):
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
-        start.record()
-        g16.h_rows(cs, witness, "cuda")
-        end.record()
-        host_ms = (time.perf_counter() - t0) * 1e3
+        ww = ints_to_words(witness, "cuda")
         torch.cuda.synchronize()
-        spans.append(f"host {host_ms:.1f} / card {start.elapsed_time(end):.1f}")
-    log(f"[prove] H pipeline (h_rows) ms, host enqueue / card span: "
-        f"{'; '.join(spans)}")
+        conv.append(f"{(time.perf_counter() - t0) * 1e3:.1f}")
+    for label, w in (("from ints", witness), ("from words", ww)):
+        spans = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            g16.h_rows(cs, w, "cuda")
+            end.record()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            spans.append(f"host {host_ms:.1f} / card "
+                         f"{start.elapsed_time(end):.1f}")
+        log(f"[prove] H pipeline (h_rows) {label} ms, host enqueue / card "
+            f"span: {'; '.join(spans)}")
+    log(f"[prove] the witness's one host conversion to words on the card "
+        f"(ints_to_words, {len(witness)} values) ms: {', '.join(conv)}")
+    prove_launches(pk, cs, witness)
+    traced_prove(pk, cs, witness)
     return runs[1][0]
+
+
+def traced_prove(pk, cs, witness) -> None:
+    """One more steady prove() under `utils.profiling.trace`, its Chrome
+    trace written to a temporary INFIMUM_PROFILE_DIR and read back: the
+    device kernels it launched (the profiled prove's kernel count), the
+    card's busy time (the union of its kernels, copies and sets) against
+    the prove's host clock, and the kernels by name. The profiler slows
+    the host, so read the busy time and the counts, not the wall time."""
+    import tempfile
+
+    from infimum_tpu_torch.groth16 import groth16 as g16
+    from infimum_tpu_torch.utils.profiling import trace
+
+    saved = os.environ.get("INFIMUM_PROFILE_DIR")
+    with tempfile.TemporaryDirectory() as out:
+        os.environ["INFIMUM_PROFILE_DIR"] = out
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with trace("steady_process_prove"):
+                g16.prove(pk, cs, witness, device="cuda")
+                torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        finally:
+            if saved is None:
+                os.environ.pop("INFIMUM_PROFILE_DIR", None)
+            else:
+                os.environ["INFIMUM_PROFILE_DIR"] = saved
+        with open(os.path.join(out, "steady_process_prove.json")) as f:
+            events = json.load(f)["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("ph") == "X" and e.get("cat") in (
+                       "kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    names: dict = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            key = e.get("name", "?")
+            key = next((k for k in ("fr_rows", "fr_ntt_tile", "fr_ntt_stage",
+                                    "fr_pointwise", "msm_accum",
+                                    "msm_weighted") if k in key), "other")
+            names[key] = names.get(key, 0) + 1
+    kernels = sum(names.values())
+    log(f"[prove] profiled steady prove(): {kernels} device kernels "
+        f"({json.dumps(names)}), {len(spans) - kernels} copies and sets; "
+        f"card busy {busy / 1e3:.1f} ms of {wall_us / 1e3:.1f} ms under the "
+        f"profiler (idle share {1 - busy / wall_us:.3f}); card "
+        f"{card_line()}")
+    if kernels == 0:
+        raise AssertionError("the profiler saw no device kernel")
+
+
+# -- the H pipeline's kernels (phases 4 and 9) --------------------------------------
+
+H_KERNELS = ("fr_rows", "fr_ntt_tile", "fr_ntt_stage", "fr_pointwise")
+VALUE_BYTES = 32                   # one Fr value: 8 words
+
+
+def rows_work(sp, m: int, nv: int):
+    """(bytes, Fr products) of one row launch: the row pointer, each
+    term's column and coefficient, each of the nv witness values read
+    once (the witness fits in L2 however often the terms name it), each
+    row written once."""
+    return (sp.rowptr.numel() * 4 + sp.nnz * (4 + VALUE_BYTES)
+            + nv * VALUE_BYTES + sp.nmat * m * VALUE_BYTES, sp.nnz)
+
+
+def tile_work(B: int, logn: int, pre: bool, post: int):
+    """(bytes, Fr products) of one tile launch over B transforms: the
+    values in and out, the twiddles of its stages, the input table, the
+    output multiplies (`post` factors, a table of n where 2)."""
+    n, tlog = 1 << logn, min(logn, 10)
+    return (2 * B * n * VALUE_BYTES + ((1 << tlog) - 1) * VALUE_BYTES
+            + (n * VALUE_BYTES if pre else 0)
+            + (n * VALUE_BYTES if post == 2 else 0),
+            B * (n // 2) * tlog + (B * n if pre else 0) + B * n * post)
+
+
+def stage_work(B: int, logn: int, s: int, post: int):
+    """(bytes, Fr products) of the stage-s launch: the values in and out,
+    that stage's twiddles, the output table where `post` is 2."""
+    n = 1 << logn
+    return (2 * B * n * VALUE_BYTES + (1 << (s - 1)) * VALUE_BYTES
+            + (n * VALUE_BYTES if post == 2 else 0),
+            B * (n // 2) + B * n * post)
+
+
+def pointwise_work(n: int, b: bool, c: bool, k: bool):
+    """(bytes, Fr products) of a pointwise launch over n values."""
+    return ((2 + b + c) * n * VALUE_BYTES + (VALUE_BYTES if k else 0),
+            n * (b + k))
+
+
+def h_launches(sp, m: int, nv: int, zkey: bool):
+    """Every launch of one `h_rows` (or, with `zkey`, `odd_coset_rows`) at
+    domain m: [(kernel, bytes, Fr products)], in order."""
+    logm = m.bit_length() - 1
+    out = [("fr_pointwise", *pointwise_work(nv, False, False, True)),
+           ("fr_rows", *rows_work(sp, m, nv))]
+    if zkey:
+        out.append(("fr_pointwise", *pointwise_work(m, True, False, False)))
+
+    transforms = h_transforms(zkey)
+    for i, (B, pre, post) in enumerate(transforms):
+        if i == 2:
+            out.append(("fr_pointwise", *pointwise_work(m, True, True,
+                                                        False)))
+        out.append(("fr_ntt_tile", *tile_work(B, logm, pre,
+                                              post if logm <= 10 else 0)))
+        for s in range(11, logm + 1):
+            out.append(("fr_ntt_stage", *stage_work(
+                B, logm, s, post if s == logm else 0)))
+    if zkey:
+        out.append(("fr_pointwise", *pointwise_work(m, True, True, True)))
+    return out
+
+
+def h_transforms(zkey: bool):
+    """(batch, input table, output factors) of each transform of the H
+    stage: the iNTT (x 1/n), the coset NTT, and unless `zkey` the coset
+    iNTT (x 1/(nZ) and the inverse coset powers, a table)."""
+    return [(3, False, 1), (3, True, 0)] + ([] if zkey else [(1, False, 2)])
+
+
+def h_function_work(sp, m: int, nv: int, zkey: bool):
+    """(bytes, Fr products) of the whole stage with each step's values
+    read and written once: the launches' row and pointwise work, and each
+    transform as one pass (its values in and out, its whole twiddle table
+    and its tables once); the same Fr products as the launches. This
+    design moves more: each stage launch reads and writes the values
+    again."""
+    plan = h_launches(sp, m, nv, zkey)
+    moved = sum(b for name, b, _ in plan
+                if name in ("fr_rows", "fr_pointwise"))
+    moved += sum((2 * B * m + (m - 1) + m * pre + m * (post == 2))
+                 * VALUE_BYTES for B, pre, post in h_transforms(zkey))
+    return moved, sum(p for _, _, p in plan)
+
+
+def h_phase(label: str, sp, witness, m: int, mul_rate, whole,
+            whole_plain, zkey: bool = False) -> dict:
+    """Each H kernel at one shape of the main path against its plain
+    version, bit for bit, timed by CUDA events beside its bound and its
+    plain time: the witness's encoding (pointwise x R^2), the row launch
+    (its plain version reads the standard-form coefficients, so the
+    card's encoding of the table is checked too), the tile launch of the
+    coset NTT (B = 3, the coset powers fused in), a stage launch of it
+    (the last), the iNTT's last stage with its output multiplies, and the
+    pointwise step a.b - c; then the whole `whole(words)` against
+    `whole_plain(ints)`, its launches counted against `h_launches`, its
+    time beside the sum of their bounds (this design's least time) and
+    the function's bound (`h_function_work`). A stage launch works in
+    place, so each timed call gets its own copy, made before the timing.
+    Returns per-kernel rows (error, ms, plain ms, bound ms, bound by) for
+    the report."""
+    from infimum_tpu_torch import kernels
+    from infimum_tpu_torch.groth16 import rowval as RV
+    from infimum_tpu_torch.ntt import ntt as N
+
+    dev = N.device_key("cuda")
+    logm = m.bit_length() - 1
+    ww = RV.ints_to_words(witness, "cuda")
+    nv = len(witness)
+    rows = {}
+
+    def held(name, fn, plain, work, reps=10):
+        ms, got = cuda_ms(fn, reps, warm=1)
+        plain_ms, want = cuda_ms(plain, 1)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label}: {name} differs from its plain "
+                                 f"version")
+        least = bound(work[0], work[1], mul_rate)
+        log(f"[h {label}] {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} "
+            f"ms, bound {least[0]:.4f} ms ({least[1]}; {work[0]} bytes, "
+            f"{work[1]} Fr products), {least[0] / ms:.1%} of bound; equal "
+            f"to plain (max abs err 0)")
+        rows.setdefault(name, (0, ms, plain_ms, *least))
+        return got
+
+    r2 = N.fr_const(N.FR_CTX.R2, dev, mont=False)
+    w_mont = held("fr_pointwise (x R^2, the witness's encoding)",
+                  lambda: RV.to_mont_words(ww),
+                  lambda: N.pointwise_plain(ww, k=r2),
+                  pointwise_work(nv, False, False, True))
+    abc = held("fr_rows", lambda: RV.rows_words(sp, w_mont, m),
+               lambda: RV.rows_plain(sp, w_mont, m),
+               rows_work(sp, m, nv), reps=3)
+    if zkey:
+        abc = torch.cat([abc, N.pointwise(abc[0], abc[1]).unsqueeze(0)])
+    g = N._root_of_unity(2 * m) if zkey else 5       # groth16.COSET_GEN
+    tw, _ = N.word_tables(logm, False, dev)
+    pre = N.coset_words(logm, g, False, dev)
+    tiled = held("fr_ntt_tile", lambda: N.ntt_tile(abc, logm, tw, pre),
+                 lambda: N.ntt_tile_plain(abc, logm, tw, pre),
+                 tile_work(abc.shape[0], logm, True, 0))
+    if logm > N.TILE_LOG:
+        reps = 10
+
+        def copies(x):
+            return iter([x.clone() for _ in range(reps + 1)])
+
+        fresh = copies(tiled)
+        held("fr_ntt_stage",
+             lambda: N.ntt_stage(next(fresh), logm, logm, tw),
+             lambda: N.ntt_stage_plain(tiled, logm, logm, tw),
+             stage_work(abc.shape[0], logm, logm, 0), reps)
+        twi, _ = N.word_tables(logm, True, dev)
+        post = (N.fr_const(N.fr_inv(m), dev, mont=False),
+                N.coset_words(logm, g, True, dev))
+        one = tiled[:1].contiguous()
+        fresh_one = copies(one)
+        held("fr_ntt_stage (last, 2 output factors, B = 1)",
+             lambda: N.ntt_stage(next(fresh_one), logm, logm, twi, *post),
+             lambda: N.ntt_stage_plain(one, logm, logm, twi, *post),
+             stage_work(1, logm, logm, 2), reps)
+    held("fr_pointwise", lambda: N.pointwise(tiled[0], tiled[1], tiled[2]),
+         lambda: N.pointwise_plain(tiled[0], tiled[1], tiled[2]),
+         pointwise_work(m, True, True, False))
+
+    # the whole pipeline, its launches and its time
+    kernels.reset_counts()
+    whole(ww)
+    torch.cuda.synchronize()
+    counted = {k: kernels.launch_counts()[k] for k in H_KERNELS}
+    plan = h_launches(sp, m, nv, zkey)
+    want = {k: sum(1 for name, *_ in plan if name == k) for k in H_KERNELS}
+    if counted != want:
+        raise AssertionError(f"{label}: launches {counted}, planned {want}")
+    ms, got = cuda_ms(lambda: whole(ww), 3, warm=1)
+    plain_ms, want_out = cuda_ms(lambda: whole_plain(witness), 1)
+    if not torch.equal(got, want_out):
+        raise AssertionError(f"{label}: the whole pipeline differs from "
+                             f"its plain version")
+    total = sum(bound(b, p, mul_rate)[0] for _, b, p in plan)
+    moved = sum(b for _, b, _ in plan)
+    fn_work = h_function_work(sp, m, nv, zkey)
+    fn_least = bound(*fn_work, mul_rate)
+    log(f"[h {label}] whole: {len(plan)} launches ({json.dumps(counted)}),"
+        f" kernels {ms:.3f} ms, plain {plain_ms:.3f} ms; this design's "
+        f"least time (the sum of its launches' bounds) {total:.4f} ms "
+        f"({moved} bytes), {total / ms:.1%} of it; the function's bound "
+        f"{fn_least[0]:.4f} ms ({fn_least[1]}; {fn_work[0]} bytes, "
+        f"{fn_work[1]} Fr products), {fn_least[0] / ms:.1%} of it; equal "
+        f"to plain bit for bit; "
+        f"{sp.nnz} terms over {sp.nmat} matrices "
+        f"({', '.join(str(int(x)) for x in matrix_nnz(sp))}), longest row "
+        f"{sp.longest}; card {card_line()}")
+    return rows
+
+
+def matrix_nnz(sp):
+    """Terms of each matrix of `sp`, from its row pointer."""
+    ends = sp.rowptr[::sp.num_rows].tolist() if sp.num_rows else [0]
+    return [b - a for a, b in zip(ends, ends[1:])]
+
+
+def _random_witness(n: int, seed: int) -> list[int]:
+    """n field elements below 2^253 from a numpy seed: an input for the
+    kernels at a circuit's shape (not a satisfying witness)."""
+    from infimum_tpu_torch.ff.fp import tensor_to_ints
+
+    return tensor_to_ints(_random_fr(np.random.default_rng(seed), n))
+
+
+def h_kernels(run, mul_rate) -> dict:
+    """Phase 4's H part: the process circuit's shape (2^18, B = 3) with
+    the first process witness, then the tally circuit's (2^14) with a
+    witness from a seed; each through `h_phase`. Returns the process
+    shape's rows."""
+    from infimum_tpu_torch.groth16 import groth16 as g16
+
+    out = {}
+    for label, circuit, witness in (
+            ("process", run.keys.process_circuit,
+             run.first_process["witness"]),
+            ("tally", run.keys.tally_circuit,
+             _random_witness(run.keys.tally_circuit.cs.num_vars,
+                             H_SEED))):
+        cs = circuit.cs
+        rows = h_phase(label, g16.sparse_rows(cs, "cuda"), witness,
+                       g16._domain_size(cs), mul_rate,
+                       lambda ww, cs=cs: g16.h_rows(cs, ww, "cuda"),
+                       lambda w, cs=cs: g16.h_rows_plain(cs, w, "cuda"))
+        if label == "process":
+            out = rows
+    return out
+
+
+def prove_launches(pk, cs, witness) -> dict:
+    """Every kernel's launches in one steady prove()."""
+    from infimum_tpu_torch import kernels
+    from infimum_tpu_torch.groth16 import groth16 as g16
+
+    kernels.reset_counts()
+    g16.prove(pk, cs, witness, device="cuda")
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in kernels.launch_counts().items() if n}
+    missing = [k for k in H_KERNELS if not counts.get(k)]
+    if missing:
+        raise AssertionError(f"a steady prove() never launched {missing}")
+    log(f"[prove] launches of one steady process prove(): "
+        f"{json.dumps(counts)}")
+    return counts
 
 
 def _affine_err(p, q) -> int:
@@ -723,7 +1075,9 @@ def e2e_records(timings: dict) -> None:
             f"{json.dumps(trace)}")
     log(f"[e2e] prewarm {timings['prewarm']}s; kernel_load_log "
         f"{json.dumps(timings['kernel_load_log'])}")
-    if len(timings["kernel_load_log"]) != 3:
+    from infimum_tpu_torch import kernels
+
+    if len(timings["kernel_load_log"]) != len(kernels.SOURCES):
         raise AssertionError("kernel_load_log wants one entry a source")
 
 
@@ -810,9 +1164,10 @@ def scale_poll(mul_rate) -> None:
     want = record["sampled_process"] + record["sampled_tally"]
     if len(verified) != want or not all(verified) or want != 12:
         raise AssertionError(f"native verifications {verified}, want 12")
-    idle = [k for k, n in launches.items() if n == 0 and k.startswith("msm_")]
+    idle = [k for k, n in launches.items()
+            if n == 0 and k.startswith(("msm_", "fr_"))]
     if idle:
-        raise AssertionError(f"MSM kernels never launched in phase 8: {idle}")
+        raise AssertionError(f"kernels never launched in phase 8: {idle}")
     log(f"[scale] {n_p} + {n_t} commitments walked through the pallet's "
         f"prepare_public_inputs; {len(verified)} sampled proofs verified by "
         f"the native pairing; kernel launches {launches}; card {card_line()}")
@@ -877,9 +1232,10 @@ def zkey_phase(run, mul_rate) -> None:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = kernels.launch_counts()
-    idle = [k for k, n in launches.items() if n == 0 and k.startswith("msm_")]
+    idle = [k for k, n in launches.items()
+            if n == 0 and k.startswith(("msm_", "fr_"))]
     if idle:
-        raise AssertionError(f"MSM kernels never launched in phase 9: {idle}")
+        raise AssertionError(f"kernels never launched in phase 9: {idle}")
     vk = Z.vk_from_zkey(back)
     vk_bytes = ark.serialize_vkey(vk)
     for proof in proofs:
@@ -925,6 +1281,9 @@ def zkey_phase(run, mul_rate) -> None:
     rows, sc, lanes = g16._msm_inputs(back, "h", back.h_query, p_odd, G1_DEV)
     msm_kernels("h", G1_DEV, rows, sc, lanes, mul_rate, tag="zkey ",
                 compare=True)
+    h_phase("zkey", Z.zkey_rows(back, "cuda"), witness, back.domain_size,
+            mul_rate, lambda ww: Z.odd_coset_rows(back, ww, "cuda"),
+            lambda w: Z.odd_coset_rows_plain(back, w, "cuda"), zkey=True)
 
 
 def parallel_phase(run) -> None:
@@ -967,9 +1326,9 @@ def parallel_phase(run) -> None:
             wall = time.perf_counter() - t0
             launches = kernels.launch_counts()
             idle = [k for k, n in launches.items()
-                    if n == 0 and k.startswith("msm_")]
+                    if n == 0 and k.startswith(("msm_", "fr_"))]
             if idle:
-                raise AssertionError(f"MSM kernels idle in phase 10: {idle}")
+                raise AssertionError(f"kernels idle in phase 10: {idle}")
             if WP.FALLBACK_BATCHES != fell:
                 raise AssertionError(f"{WP.FALLBACK_BATCHES - fell} batches "
                                      f"fell back to the parent")
@@ -1219,7 +1578,8 @@ def multi_gpu_phase(run, trees) -> dict:
                     summed[k] = summed.get(k, 0) + n
                 need = ([f"msm_{s}_{c}" for s in ("accum", "weighted")
                          for c in ("g1", "g2")] if work["msm"] else []) + (
-                    ["poseidon_perm"] if work["tree"] else [])
+                    ["poseidon_perm"] if work["tree"] else []) + (
+                    ["fr_ntt_tile"] if work["ntt"] else [])
                 idle = [k for k in need if r["launches"][k] == 0]
                 if idle:
                     raise AssertionError(f"rank {r['rank']} of {d} never "
@@ -1385,6 +1745,7 @@ def main(argv: list[str]) -> int:
     first = run.first_process
     cmp = kernel_vs_plain(run.keys.process_pk, run.keys.process_circuit.cs,
                           first["witness"], mul_rate)
+    cmp.update(h_kernels(run, mul_rate))
     steady_prove(run.keys.process_pk, run.keys.process_circuit.cs,
                  first["witness"], first["publics"])
 
@@ -1404,14 +1765,14 @@ def main(argv: list[str]) -> int:
 
     # 6. path checks
     missing = [k for k, n in launches.items()
-               if n == 0 and k.startswith("msm_")]
+               if n == 0 and k.startswith(("msm_", "fr_"))]
     if missing:
         raise AssertionError(f"kernels never launched in the e2e: {missing}")
     if foreign_modules():
         raise AssertionError(f"JAX or infimum_tpu imported: "
                              f"{foreign_modules()[:5]}")
-    log("[path] all MSM kernels launched in the e2e run; no JAX and no "
-        "infimum_tpu module imported")
+    log("[path] all MSM and H pipeline kernels launched in the e2e run; no "
+        "JAX and no infimum_tpu module imported")
 
     # 7. Poseidon: the poll's trees, the benchmark's batch, every width
     launches["poseidon_perm"], tree_err, trees = poll_trees(native)

@@ -8,8 +8,10 @@ two limbs is < 2^32 and a schoolbook column of 16 such products < 2^36, so
 int64 is exact throughout.
 
 Every op works on the last dim only and broadcasts over the leading dims.
-This is the plain version the CPU tests hold against the reference, and what
-the NTT, row evaluation and fixed-base stages run on the card in this slice.
+This is the plain version the CPU tests hold against the reference: the
+arithmetic of the kernels' plain versions (the NTT, row evaluation and
+pointwise steps run it on the CPU; on a card they are CUDA kernels over
+words, `limbs_to_words`), and what the fixed-base setup runs on the card.
 """
 
 from __future__ import annotations

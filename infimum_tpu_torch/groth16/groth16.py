@@ -6,14 +6,18 @@ same randomness and the same proofs:
   - setup(): the QAP by Lagrange evaluation at tau (libsnark/arkworks
     reduction with the extra public-input rows), every key element a
     fixed-base product on `device` (msm/fixed_base.py).
-  - prove(): row evaluation and the H pipeline (3 iNTT + 3 coset NTT, the
-    pointwise step and one coset iNTT, `ab_minus_c`) stay on `device`; the
-    five MSMs (a, b1, l, h over G1 and b2 over G2) are dispatched before
-    any host wait, through the CUDA MSM kernels on a card; the proof is
-    assembled on the host (`prove_queries`, which groth16/zkey.py's
-    prove_zkey shares). Its four stages (`h_dispatch`, `witness_limbs`,
-    `msm_dispatch`, `msm_wait`) are recorded in LAST_PROVE_TRACE, with no
-    sync between them.
+  - prove(): the witness converted once to words on `device`; row
+    evaluation and the H pipeline (3 iNTT + 3 coset NTT, the pointwise
+    step and one coset iNTT, `ab_minus_c`) on those words, through the
+    CUDA kernels of csrc/fr_rows.cu and csrc/fr_ntt.cu on a card (30
+    launches at 2^18) and their plain versions on the CPU; the five MSMs
+    (a, b1, l, h over G1 and b2 over G2) dispatched before any host wait,
+    through the CUDA MSM kernels on a card; the proof assembled on the
+    host (`prove_queries`, which groth16/zkey.py's prove_zkey shares).
+    Its four stages (`h_dispatch`, `witness_limbs`, `msm_dispatch`,
+    `msm_wait`) are recorded in LAST_PROVE_TRACE, with no sync between
+    them. `h_rows_plain` / `ab_minus_c_plain` are the H stage's plain
+    version in limbs.
   - verify(): the native C++ pairing (`native`), which reads the keys and
     proofs through `io.arkworks`; without the native library, verify_py's
     pure-Python pairing (curve/pairing.py).
@@ -34,16 +38,22 @@ from ..curve.bn254_host import (
 from ..curve.proj import G1_DEV, G2_DEV, CurveDev
 from ..ff.bn254 import FR_MOD, batch_inv_mod, fr_inv
 from ..ff.fp import (
-    FR_CTX, NLIMBS, device_key, ints_to_tensor, tensor_to_ints,
+    FR_CTX, NLIMBS, device_key, tensor_to_ints, words_to_limbs,
 )
 from ..msm.fixed_base import fixed_base_mul_batch
 from ..msm.msm import (
     combine_window_points, encode_rows, msm_lanes, msm_rows_async,
 )
-from ..ntt.ntt import _root_of_unity, coset_ntt, coset_intt, intt
+from ..ntt.ntt import (
+    _root_of_unity, coset_intt_plain, coset_ntt_plain, coset_words, fr_const,
+    ntt_plain, ntt_words, pointwise, pointwise_plain,
+)
 from ..utils.profiling import Stopwatch
 from .r1cs import LC, ConstraintSystem
-from .rowval import SparseRows, eval_rows, flatten_rows
+from .rowval import (
+    SparseRows, flatten_rows, ints_to_words, rows_plain, rows_words,
+    to_mont_words,
+)
 
 P = FR_MOD
 COSET_GEN = 5  # Fr's standard multiplicative generator (as arkworks)
@@ -202,25 +212,64 @@ def sparse_rows(cs: ConstraintSystem, device) -> SparseRows:
 
 def ab_minus_c(abc: torch.Tensor, logm: int, g: int,
                divide_z: bool) -> torch.Tensor:
-    """(m, 16) standard-form limbs from (3, m) Montgomery evaluations of
-    a, b, c on the domain: one batched iNTT, one coset NTT with generator
-    `g`, then a.b - c on that coset; with `divide_z`, divided by Z there
-    and taken back to coefficients by a coset iNTT (h's coefficients)."""
-    ev = coset_ntt(intt(abc, logm), logm, g)           # 3 transforms batched
+    """(m, 8) standard-form words from (3, m, 8) Montgomery words of a, b,
+    c on the domain: one batched iNTT, one coset NTT with generator `g`
+    (the coset powers its input table), then a.b - c on that coset; with
+    `divide_z`, divided by Z there and taken back to coefficients by a
+    coset iNTT (h's coefficients), whose output multiplies fold 1/n, 1/Z,
+    the exit from Montgomery form and the inverse coset powers. On a card
+    each step is a kernel (ntt/ntt.py): with `divide_z` and logm >= 10,
+    3 (logm - 9) + 1 launches."""
+    dev = device_key(abc.device)
+    m = 1 << logm
+    ev = ntt_words(ntt_words(abc, logm, True, post_c=fr_const(fr_inv(m), dev)),
+                   logm, pre=coset_words(logm, g, False, dev))
+    if not divide_z:
+        return pointwise(ev[0], ev[1], ev[2], k=fr_const(1, dev, mont=False))
+    z_inv = fr_inv((pow(g, m, P) - 1) % P)
+    return ntt_words(pointwise(ev[0], ev[1], ev[2]), logm, True,
+                     post_c=fr_const(z_inv * fr_inv(m), dev, mont=False),
+                     post_t=coset_words(logm, g, True, dev))
+
+
+def ab_minus_c_plain(abc: torch.Tensor, logm: int, g: int,
+                     divide_z: bool) -> torch.Tensor:
+    """Plain version of `ab_minus_c` in limbs on any device: (m, 16)
+    standard-form limbs from (3, m, 16) Montgomery limbs, through the plain
+    transforms (`ntt_plain`) and `ff/fp.py`'s arithmetic."""
+    ev = coset_ntt_plain(ntt_plain(abc, logm, invert=True), logm, g)
     out = FR_CTX.sub(FR_CTX.mont_mul(ev[0], ev[1]), ev[2])
     if divide_z:
         z_inv = fr_inv((pow(g, 1 << logm, P) - 1) % P)
-        out = coset_intt(FR_CTX.mont_mul(out, FR_CTX.encode(
+        out = coset_intt_plain(FR_CTX.mont_mul(out, FR_CTX.encode(
             [z_inv], abc.device)[0]), logm, g)
     return FR_CTX.from_mont(out)
 
 
-def h_rows(cs: ConstraintSystem, witness: list[int], device) -> torch.Tensor:
+def h_rows(cs: ConstraintSystem, witness, device) -> torch.Tensor:
     """(m, 16) standard-form limbs of h's coefficients on `device`: the
-    h-MSM's scalars. Row m-1 must be zero (the caller's degree gate)."""
+    h-MSM's scalars. Row m-1 must be zero (the caller's degree gate).
+    `witness` is a list of ints or its standard-form words on `device`
+    (`rowval.ints_to_words`), converted once a prove."""
     m = _domain_size(cs)
-    abc = torch.stack(eval_rows(sparse_rows(cs, device), witness, m))
-    return ab_minus_c(abc, m.bit_length() - 1, COSET_GEN, divide_z=True)
+    if not isinstance(witness, torch.Tensor):
+        witness = ints_to_words(witness, device)
+    abc = rows_words(sparse_rows(cs, device), to_mont_words(witness), m)
+    return words_to_limbs(ab_minus_c(abc, m.bit_length() - 1, COSET_GEN,
+                                     divide_z=True))
+
+
+def h_rows_plain(cs: ConstraintSystem, witness: list[int],
+                 device) -> torch.Tensor:
+    """Plain version of `h_rows` on any device: the witness encoded by
+    plain products, the plain row walk over the same rows and
+    `ab_minus_c_plain`."""
+    m = _domain_size(cs)
+    w_mont = pointwise_plain(ints_to_words(witness, device), k=fr_const(
+        FR_CTX.R2, device_key(device), mont=False))
+    abc = words_to_limbs(rows_plain(sparse_rows(cs, device), w_mont, m))
+    return ab_minus_c_plain(abc, m.bit_length() - 1, COSET_GEN,
+                            divide_z=True)
 
 
 def compute_h(cs: ConstraintSystem, witness: list[int], device="cuda"):
@@ -281,9 +330,12 @@ def prove_queries(key, queries, h_scalars, witness: list[int], npub: int,
     """The Groth16 prover over one key's five queries. `key` (a ProvingKey
     or a ZkeyData) holds alpha_g1, beta_g1, beta_g2, delta_g1, delta_g2
     and the queries' cached encodings; `queries` is the (name, points) of
-    its a, b1, b2 (G2), c and h queries; `h_scalars()` gives the h-MSM's
-    scalars and a row that must be zero (the degree gate), or None. Draws
-    r, s from `rng` first, records its stages in LAST_PROVE_TRACE."""
+    its a, b1, b2 (G2), c and h queries; `h_scalars(w)` gives the h-MSM's
+    scalars and a row that must be zero (the degree gate), or None, from
+    the witness's standard-form words on `device`. The witness is
+    converted once, at the start of `h_dispatch`, and shared by the rows
+    and the MSMs. Draws r, s from `rng` first, records its stages in
+    LAST_PROVE_TRACE."""
     global LAST_PROVE_TRACE
     sw = Stopwatch()
     rng = rng or random.SystemRandom()
@@ -294,9 +346,10 @@ def prove_queries(key, queries, h_scalars, witness: list[int], npub: int,
     # No sync between the stages, as in the reference: the host waits for
     # the card only where it reads back (the degree gate, the combines).
     with sw.stage("h_dispatch"):
-        h, gate = h_scalars()
+        w_words = ints_to_words(witness, device)
+        h, gate = h_scalars(w_words)
     with sw.stage("witness_limbs"):
-        w = ints_to_tensor([x % P for x in witness], device)
+        w = words_to_limbs(w_words)
     with sw.stage("msm_dispatch"):
         a_fin = _msm_async(key, *a_q, w)
         b2_fin = _msm_async(key, *b2_q, w, G2_DEV)
@@ -330,8 +383,8 @@ def prove(pk: ProvingKey, cs: ConstraintSystem, witness: list[int],
           rng: random.Random | None = None, device="cuda") -> Proof:
     m = _domain_size(cs)
 
-    def h_scalars():
-        h = h_rows(cs, witness, device)
+    def h_scalars(w_words):
+        h = h_rows(cs, w_words, device)
         return h[:m - 1], h[m - 1]
 
     return prove_queries(

@@ -1,26 +1,66 @@
-"""Sparse R1CS row evaluation over BN254 Fr in plain PyTorch.
+"""Sparse R1CS row evaluation over BN254 Fr: a CUDA kernel on a card,
+plain PyTorch elsewhere.
 
 Counterpart of `infimum_tpu/groth16/rowval.py`: a|_H, b|_H and c|_H as one
 sparse matrix-vector product per matrix.
 
-  1. encode the witness once: (nv, 16) limbs -> Montgomery (mont_mul by R^2);
-  2. per term: mont_mul(coeff_mont[k], w_mont[col[k]]), in chunks of terms
-     (the process circuit has about 3.9M), to bound the product's memory;
-  3. `index_add_` by row: Montgomery values are linear, so limb sums
-     accumulate exactly in int64; one carry pass, a fold of the carry-out
-     and conditional subtractions give reduced Montgomery rows, the NTT's
-     input encoding.
+`SparseRows` keeps, on its device, compressed rows of every matrix in
+turn: a row pointer (nmat x num_rows + 1 int32), the terms' columns
+(int32) and coefficients (8 int32 words each, Montgomery form), sorted by
+matrix and row (a zkey's triples come in any order; repeats stay separate
+terms, summed like any other); and, on the host, the coefficients in
+standard form. `rows_words` evaluates them against a Montgomery witness
+in words:
+
+  - on a card, one launch of `csrc/fr_rows.cu` (one thread a row, each
+    row summed in Fr adds);
+  - on the CPU, `rows_plain`: per term mont_mul(coeff, w[col]) of the
+    standard-form coefficient, in chunks of terms (the process circuit
+    has about 3.9M), `index_add_` by row (the values are linear, so limb
+    sums accumulate exactly in int64), then one carry pass, a fold of the
+    carry-out, conditional subtractions and one product by R^2: reduced
+    Montgomery rows, the NTT's input encoding. It reads the standard-form
+    coefficients, not the Montgomery table the card's encoding wrote, so
+    a fault in that encoding shows as a difference.
+
+Both give each row's reduced value, so the two agree limb for limb.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from .. import kernels
 from ..ff.bn254 import FR_MOD
-from ..ff.fp import FR_CTX, NLIMBS, carry, ints_to_tensor, sub_borrow
+from ..ff.fp import (
+    FR_CTX, NLIMBS, carry, device_key, limbs_to_words, sub_borrow,
+    words_to_limbs,
+)
+from ..ntt.ntt import (
+    WORDS, _on_cuda, _words_check, fr_const, pointwise,
+)
 
 P = FR_MOD
 TERM_CHUNK = 1 << 18
+
+
+def ints_to_words(xs, device) -> torch.Tensor:
+    """python ints -> (N, 8) int32 words of each x mod r on `device`: the
+    one host conversion of a witness or a coefficient list (one bytes
+    buffer, no per-limb work)."""
+    buf = bytearray(b"".join([(x % P).to_bytes(32, "little") for x in xs]))
+    return torch.frombuffer(buf, dtype=torch.int32).reshape(
+        -1, WORDS).to(device) if buf else torch.zeros(
+        (0, WORDS), dtype=torch.int32, device=device)
+
+
+def to_mont_words(std: torch.Tensor) -> torch.Tensor:
+    """Standard-form words -> Montgomery form (x R^2 mod r, Montgomery
+    product): one pointwise launch on a card, its plain version on the
+    CPU."""
+    return pointwise(std, k=fr_const(FR_CTX.R2, device_key(std.device),
+                                     mont=False))
 
 
 def flatten_rows(rows) -> dict:
@@ -39,27 +79,50 @@ def flatten_rows(rows) -> dict:
 
 
 class SparseRows:
-    """Flattened (coeff, col, row) triples of sparse matrices, on one
-    device, coefficients in Montgomery form. `mats` maps each matrix's
-    name to its (coeffs, cols, rows) lists: `flatten_rows` of an R1CS, or
-    a snarkjs .zkey's A and B triples (any order, repeats summed)."""
+    """Compressed rows of sparse matrices on one device, coefficients in
+    Montgomery form. `mats` maps each matrix's name to its (coeffs, cols,
+    rows) lists: `flatten_rows` of an R1CS, or a snarkjs .zkey's A and B
+    triples (any order, repeats summed). Each matrix has `num_rows` rows;
+    a row of 2^16 terms or more is refused, as the reference refuses it
+    (its limb sums would overflow)."""
 
     def __init__(self, mats: dict, num_rows: int, device="cpu"):
         self.num_rows = num_rows
         self.device = device
-        self.mats = {}
-        for name, (coeffs, cols, rids) in mats.items():
-            rid = torch.tensor(rids, dtype=torch.int64)
-            if rids and int(torch.bincount(rid).max()) >= 1 << 16:
+        self.names = tuple(mats)
+        counts, cols, coeffs = [], [], []
+        self.longest = 0
+        for coeff, col, rid in mats.values():
+            rid = np.asarray(rid, dtype=np.int64)
+            if rid.size and (rid.min() < 0 or rid.max() >= num_rows):
+                raise ValueError(f"row index outside [0, {num_rows})")
+            count = np.bincount(rid, minlength=num_rows)
+            if rid.size and count.max() >= 1 << 16:
                 raise ValueError("row too long for one-limb carry fold")
-            std = ints_to_tensor([c % P for c in coeffs], device)
-            self.mats[name] = (
-                torch.cat([FR_CTX.to_mont(std[i:i + TERM_CHUNK])
-                           for i in range(0, len(coeffs), TERM_CHUNK)])
-                if coeffs else std,
-                torch.tensor(cols, dtype=torch.int64, device=device),
-                rid.to(device),
-            )
+            self.longest = max(self.longest, int(count.max(initial=0)))
+            order = np.argsort(rid, kind="stable")
+            counts.append(count)
+            cols.append(np.asarray(col, dtype=np.int64)[order])
+            coeffs.append(np.asarray(coeff, dtype=object)[order])
+        rowptr = np.concatenate([[0], np.cumsum(np.concatenate(
+            counts or [np.zeros(0, np.int64)]))])
+        if rowptr[-1] >= 1 << 31:
+            raise ValueError("more than 2^31 terms")
+        col = np.concatenate(cols or [np.zeros(0, np.int64)])
+        self.nnz = int(rowptr[-1])
+        self.max_col = int(col.max(initial=-1))
+        self.rowptr = torch.from_numpy(rowptr.astype(np.int32)).to(device)
+        self.cols = torch.from_numpy(col.astype(np.int32)).to(device)
+        self.coeffs_std = ints_to_words(
+            np.concatenate(coeffs or [[]]).tolist(), "cpu")
+        self.coeffs = torch.cat([
+            to_mont_words(self.coeffs_std[i:i + TERM_CHUNK].to(device))
+            for i in range(0, self.nnz, TERM_CHUNK)]) if self.nnz else \
+            self.coeffs_std.to(device)
+
+    @property
+    def nmat(self) -> int:
+        return len(self.names)
 
 
 def _shift_mont(device):
@@ -80,18 +143,41 @@ def _reduce_rows(sums: torch.Tensor) -> torch.Tensor:
     return FR_CTX.add(limbs.T, fold)
 
 
-def _eval_mat(coeffs, cols, rids, w_mont, m):
-    sums = torch.zeros((m, NLIMBS), dtype=torch.int64, device=w_mont.device)
-    for i in range(0, coeffs.shape[0], TERM_CHUNK):
+def rows_plain(sp: SparseRows, w_mont: torch.Tensor, m: int) -> torch.Tensor:
+    """Plain version of the row launch, on the same rows and the standard-
+    form coefficients: (nmat, m, 8) reduced Montgomery words, rows
+    num_rows..m-1 zero."""
+    dev, nr = w_mont.device, max(sp.num_rows, 1)
+    rid = torch.repeat_interleave(
+        torch.arange(sp.nmat * sp.num_rows, device=dev),
+        (sp.rowptr[1:] - sp.rowptr[:-1]).to(torch.int64))
+    out_row = rid // nr * m + rid % nr
+    cols = sp.cols.to(torch.int64)
+    w = words_to_limbs(w_mont)
+    sums = torch.zeros((sp.nmat * m, NLIMBS), dtype=torch.int64, device=dev)
+    for i in range(0, rid.shape[0], TERM_CHUNK):
         j = i + TERM_CHUNK
-        sums.index_add_(0, rids[i:j],
-                        FR_CTX.mont_mul(coeffs[i:j], w_mont[cols[i:j]]))
-    return _reduce_rows(sums)
+        sums.index_add_(0, out_row[i:j], FR_CTX.mont_mul(
+            words_to_limbs(sp.coeffs_std[i:j].to(dev)), w[cols[i:j]]))
+    return limbs_to_words(FR_CTX.to_mont(_reduce_rows(sums))).reshape(
+        sp.nmat, m, WORDS)
 
 
-def eval_rows(sp: SparseRows, witness: list[int], m: int):
-    """One (m, 16) reduced Montgomery tensor on sp.device per matrix of
-    `sp`, in order: (a, b, c), or (a, b) from a zkey."""
-    w_mont = FR_CTX.to_mont(ints_to_tensor([x % P for x in witness],
-                                           sp.device))
-    return tuple(_eval_mat(*mat, w_mont, m) for mat in sp.mats.values())
+def rows_words(sp: SparseRows, w_mont: torch.Tensor, m: int) -> torch.Tensor:
+    """(nmat, m, 8) reduced Montgomery words of every matrix of `sp`
+    against the Montgomery witness words `w_mont`: the row launch on a
+    card, `rows_plain` on the CPU."""
+    if m < sp.num_rows:
+        raise ValueError(f"domain {m} below {sp.num_rows} rows")
+    if sp.max_col >= w_mont.shape[0]:
+        raise ValueError(f"column {sp.max_col} outside a witness of "
+                         f"{w_mont.shape[0]}")
+    if not _on_cuda(w_mont, sp.rowptr):
+        return rows_plain(sp, w_mont, m)
+    _words_check("w_mont", w_mont)
+    out = torch.empty((sp.nmat, m, WORDS), dtype=torch.int32,
+                      device=w_mont.device)
+    kernels.KERNELS["fr_rows"](sp.rowptr, sp.cols, sp.coeffs, w_mont, out,
+                               sp.num_rows, m, sp.nmat)
+    return out
+

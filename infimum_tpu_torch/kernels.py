@@ -13,8 +13,9 @@ goes to the card its tensors lie on, with that card current, whichever
 card the calling thread had current.
 
 `Kernel.launches` counts the launches of one kernel instance (an MSM
-kernel for one curve, the Poseidon permutation for every width; its
-measured variants apart), so a run can show that its main path went
+kernel for one curve, the Poseidon permutation for every width, its
+measured variants apart; the H pipeline's row evaluation, NTT tile and
+stage passes and pointwise step), so a run can show that its main path went
 through the kernel. Nothing here is
 imported or built unless a CUDA tensor reaches a kernel wrapper.
 """
@@ -35,7 +36,8 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
-SOURCES = ("msm_accum.cu", "msm_weighted.cu", "poseidon_perm.cu")
+SOURCES = ("msm_accum.cu", "msm_weighted.cu", "poseidon_perm.cu",
+           "fr_ntt.cu", "fr_rows.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "--resource-usage")
 
@@ -74,6 +76,10 @@ KERNELS = {
     "msm_weighted_g2": Kernel("inf_msm_weighted_g2", 4, 2),
     "poseidon_perm": Kernel("inf_poseidon_perm", 6, 3),
     "poseidon_perm_variant": Kernel("inf_poseidon_perm_variant", 6, 4),
+    "fr_rows": Kernel("inf_fr_rows", 5, 3),
+    "fr_ntt_tile": Kernel("inf_fr_ntt_tile", 6, 3),
+    "fr_ntt_stage": Kernel("inf_fr_ntt_stage", 4, 3),
+    "fr_pointwise": Kernel("inf_fr_pointwise", 5, 1),
 }
 
 # the last build of this process: {"seconds", "path", "log", "sources"}

@@ -1,11 +1,32 @@
-"""Radix-2 NTT / iNTT / coset NTT over BN254 Fr in plain PyTorch.
+"""Radix-2 NTT / iNTT / coset NTT over BN254 Fr, and the elementwise Fr
+step of the H pipeline: CUDA kernels on a card, plain PyTorch elsewhere.
 
 Counterpart of `infimum_tpu/ntt/ntt.py:80-229`: iterative Cooley-Tukey
-(decimation in time) on (..., n, 16) Montgomery limb tensors. A bit-reversal
-gather, then log2(n) butterfly stages, each one batched `mont_mul` plus an
-add and a sub over the whole array; leading dims batch several transforms
-through every stage together. Twiddles, the bit-reversal permutation and the
-coset powers are built on the host once per size and kept per device.
+(decimation in time), a bit-reversal gather, then log2(n) butterfly
+stages with the same packed twiddle table; leading dims batch several
+transforms through every stage together.
+
+Two layers:
+  - words (`ntt_words`, `pointwise`): (..., n, 8) int32 words of
+    Montgomery values, the layout of `csrc/fr_ntt.cu`. On a CUDA tensor
+    `ntt_words` is one tile launch (the bit-reversal gather, an optional
+    input table, stages 1..TILE_LOG) and one stage launch for each
+    remaining stage, the output multiplies fused into the last launch;
+    `pointwise` is one launch. On a CPU tensor each launch is replaced by
+    its plain version (`ntt_tile_plain`, `ntt_stage_plain`,
+    `pointwise_plain`), which compute the same values with `ff/fp.py`'s
+    limb arithmetic; any other device is refused.
+  - limbs (`ntt`, `intt`, `coset_ntt`, `coset_intt`): (..., n, 16) int64
+    Montgomery limbs, the signature `parallel/ntt.py` and the tests use.
+    On every device they convert to words and back around `ntt_words`.
+    `ntt_plain`, `coset_ntt_plain` and `coset_intt_plain` are the plain
+    transform in limbs (each stage one batched `mont_mul` plus an add and
+    a sub over the whole array): the reference for the H stage's plain
+    version and the tests.
+
+Tables are built on the host once per size and kept per device
+(`device_key`): the plain limb tables, and for the kernels the same
+values as words (`word_tables`, `coset_words`, `fr_const`).
 """
 
 from __future__ import annotations
@@ -15,10 +36,16 @@ import functools
 import numpy as np
 import torch
 
+from .. import kernels
 from ..ff.bn254 import (
     FR_MOD, FR_TWO_ADIC_ROOT, FR_TWO_ADICITY, fr_inv,
 )
-from ..ff.fp import FR_CTX, NLIMBS, device_key
+from ..ff.fp import (
+    FR_CTX, NLIMBS, device_key, int_limbs, limbs_to_words, words_to_limbs,
+)
+
+TILE_LOG = 10          # csrc/fr_ntt.cu kTileLog: stages of the tile launch
+WORDS = NLIMBS // 2
 
 
 def _root_of_unity(n: int) -> int:
@@ -38,6 +65,15 @@ def _powers(x: int, n: int) -> list[int]:
     return out
 
 
+def _bitrev(logn: int) -> np.ndarray:
+    n = 1 << logn
+    rev = np.zeros(n, dtype=np.int64)
+    idx = np.arange(n, dtype=np.int64)
+    for b in range(logn):
+        rev |= ((idx >> b) & 1) << (logn - 1 - b)
+    return rev
+
+
 @functools.lru_cache(maxsize=None)
 def _stage_consts(logn: int, invert: bool, device: str):
     """(bit-reversal permutation, packed twiddles, 1/n in Montgomery form).
@@ -48,17 +84,13 @@ def _stage_consts(logn: int, invert: bool, device: str):
     w = _root_of_unity(n)
     if invert:
         w = fr_inv(w)
-    rev = np.zeros(n, dtype=np.int64)
-    idx = np.arange(n, dtype=np.int64)
-    for b in range(logn):
-        rev |= ((idx >> b) & 1) << (logn - 1 - b)
     flat = []
     for s in range(1, logn + 1):
         flat += _powers(pow(w, n >> s, FR_MOD), 1 << (s - 1))
     tw = FR_CTX.encode(flat, device) if flat else torch.zeros(
         (0, NLIMBS), dtype=torch.int64, device=device)
     n_inv = FR_CTX.encode([fr_inv(n)], device)[0]
-    return torch.from_numpy(rev).to(device), tw, n_inv
+    return torch.from_numpy(_bitrev(logn)).to(device), tw, n_inv
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,36 +100,242 @@ def _coset_consts(logn: int, g: int, invert: bool, device: str):
                          device)
 
 
-def ntt(a: torch.Tensor, logn: int, invert: bool = False) -> torch.Tensor:
-    """NTT over the second-last dim of (..., n, 16) Montgomery limbs:
-    out[i] = sum_j a_j w^(ij); with `invert`, the inverse (1/n folded in)."""
-    n = 1 << logn
-    rev, tw, n_inv = _stage_consts(logn, invert, device_key(a.device))
-    batch = a.shape[:-2]
-    a = a[..., rev, :]
-    for s in range(1, logn + 1):
+@functools.lru_cache(maxsize=None)
+def word_tables(logn: int, invert: bool, device: str):
+    """(packed twiddles (n-1, 8), 1/n (8,)) as the kernels read them: the
+    words of `_stage_consts`' limbs, built on the host, kept on `device`
+    (8 MB at 2^18)."""
+    _, tw, n_inv = _stage_consts(logn, invert, "cpu")
+    return limbs_to_words(tw).to(device), limbs_to_words(n_inv).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def coset_words(logn: int, g: int, invert: bool, device: str):
+    """The words of `_coset_consts`' limbs, kept on `device`."""
+    return limbs_to_words(_coset_consts(logn, g, invert, "cpu")).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def fr_const(x: int, device: str, mont: bool = True) -> torch.Tensor:
+    """(8,) words of x mod r: in Montgomery form, or as it stands with
+    `mont=False` (a Montgomery product by such a constant leaves
+    Montgomery form: mont_mul(aR, c) = a c)."""
+    x %= FR_MOD
+    v = FR_CTX.to_mont_int(x) if mont else x
+    return limbs_to_words(torch.tensor(int_limbs(v))).to(device)
+
+
+def _words_check(name: str, x: torch.Tensor, shape=None) -> None:
+    if x.dtype != torch.int32 or not x.is_contiguous() or x.shape[-1] != WORDS:
+        raise ValueError(f"{name}: want contiguous int32 (..., {WORDS}) words,"
+                         f" got {x.dtype} {tuple(x.shape)}")
+    if shape is not None and tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: want shape {tuple(shape)}, got "
+                         f"{tuple(x.shape)}")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernels read 16-byte vectors")
+
+
+def _on_cuda(*ts) -> bool:
+    """True for CUDA tensors (the kernel), False for CPU ones (the plain
+    version); any other device is refused."""
+    kinds = {t.device.type for t in ts if t is not None}
+    if kinds == {"cuda"}:
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"no Fr kernel for devices {sorted(kinds)}")
+
+
+# -- plain versions (limbs inside, words outside) -----------------------------------
+
+def _butterflies(a: torch.Tensor, s0: int, s1: int,
+                 tw: torch.Tensor) -> torch.Tensor:
+    """Stages s0..s1 of the DIT transform over dim -2 of (..., n, 16)
+    limbs already in bit-reversed order."""
+    batch, n = a.shape[:-2], a.shape[-2]
+    for s in range(s0, s1 + 1):
         half = 1 << (s - 1)
         blocks = a.reshape(*batch, n >> s, 2 * half, NLIMBS)
         even, odd = blocks[..., :half, :], blocks[..., half:, :]
         v = FR_CTX.mont_mul(odd, tw[half - 1:2 * half - 1])
         a = torch.cat([FR_CTX.add(even, v), FR_CTX.sub(even, v)], -2) \
                  .reshape(*batch, n, NLIMBS)
+    return a
+
+
+def _post_plain(a, post_c, post_t):
+    if post_c is not None:
+        a = FR_CTX.mont_mul(a, words_to_limbs(post_c))
+    if post_t is not None:
+        a = FR_CTX.mont_mul(a, words_to_limbs(post_t))
+    return a
+
+
+def ntt_tile_plain(x, logn, tw, pre=None, post_c=None, post_t=None):
+    """Plain version of the tile launch over (..., n, 8) words: x times
+    `pre` (natural index), bit-reversed, stages 1..min(logn, TILE_LOG);
+    when that is every stage, times `post_c` and `post_t`."""
+    a = words_to_limbs(x)
+    if pre is not None:
+        a = FR_CTX.mont_mul(a, words_to_limbs(pre))
+    a = a[..., torch.from_numpy(_bitrev(logn)).to(a.device), :]
+    tlog = min(logn, TILE_LOG)
+    a = _butterflies(a, 1, tlog, words_to_limbs(tw))
+    if tlog == logn:
+        a = _post_plain(a, post_c, post_t)
+    return limbs_to_words(a)
+
+
+def ntt_stage_plain(x, logn, s, tw, post_c=None, post_t=None):
+    """Plain version of a stage launch: stage s of (..., n, 8) words, then
+    times `post_c` and `post_t` where given."""
+    a = _butterflies(words_to_limbs(x), s, s, words_to_limbs(tw))
+    return limbs_to_words(_post_plain(a, post_c, post_t))
+
+
+def pointwise_plain(a, b=None, c=None, k=None):
+    """Plain version of the pointwise launch: (a [x b] [- c]) [x k] over
+    (..., 8) words, Montgomery products."""
+    x = words_to_limbs(a)
+    if b is not None:
+        x = FR_CTX.mont_mul(x, words_to_limbs(b))
+    if c is not None:
+        x = FR_CTX.sub(x, words_to_limbs(c))
+    if k is not None:
+        x = FR_CTX.mont_mul(x, words_to_limbs(k))
+    return limbs_to_words(x)
+
+
+# -- kernel wrappers ------------------------------------------------------------------
+
+def ntt_tile(x, logn, tw, pre=None, post_c=None, post_t=None):
+    """The tile launch on a card (a new (..., n, 8) tensor), its plain
+    version on the CPU."""
+    if not _on_cuda(x, tw, pre, post_c, post_t):
+        return ntt_tile_plain(x, logn, tw, pre, post_c, post_t)
+    n = 1 << logn
+    _words_check("x", x)
+    _words_check("tw", tw, (n - 1, WORDS))
+    for name, t, shape in (("pre", pre, (n, WORDS)),
+                           ("post_c", post_c, (WORDS,)),
+                           ("post_t", post_t, (n, WORDS))):
+        if t is not None:
+            _words_check(name, t, shape)
+    if x.shape[-2] != n:
+        raise ValueError(f"x: want length {n} at dim -2, got {x.shape}")
+    out = torch.empty_like(x)
+    kernels.KERNELS["fr_ntt_tile"](x, out, tw, pre, post_c, post_t,
+                                   x.numel() // (n * WORDS), logn,
+                                   min(logn, TILE_LOG))
+    return out
+
+
+def ntt_stage(x, logn, s, tw, post_c=None, post_t=None):
+    """Stage s (> TILE_LOG) on a card, in place on x (returned); its plain
+    version on the CPU (a new tensor)."""
+    if not _on_cuda(x, tw, post_c, post_t):
+        return ntt_stage_plain(x, logn, s, tw, post_c, post_t)
+    n = 1 << logn
+    _words_check("x", x)
+    _words_check("tw", tw, (n - 1, WORDS))
+    for name, t, shape in (("post_c", post_c, (WORDS,)),
+                           ("post_t", post_t, (n, WORDS))):
+        if t is not None:
+            _words_check(name, t, shape)
+    if x.shape[-2] != n or not TILE_LOG < s <= logn:
+        raise ValueError(f"stage {s} of 2^{logn} on {tuple(x.shape)}")
+    kernels.KERNELS["fr_ntt_stage"](x, tw, post_c, post_t,
+                                    x.numel() // (n * WORDS), logn, s)
+    return x
+
+
+def pointwise(a, b=None, c=None, k=None):
+    """(a [x b] [- c]) [x k] over (..., 8) words: the pointwise launch on
+    a card, its plain version on the CPU. b, c have a's shape, k is (8,)."""
+    if not _on_cuda(a, b, c, k):
+        return pointwise_plain(a, b, c, k)
+    _words_check("a", a)
+    for name, t, shape in (("b", b, a.shape), ("c", c, a.shape),
+                           ("k", k, (WORDS,))):
+        if t is not None:
+            _words_check(name, t, shape)
+    if a.numel() // WORDS >= 1 << 31:
+        raise ValueError("pointwise: more than 2^31 values")
+    out = torch.empty_like(a)
+    kernels.KERNELS["fr_pointwise"](a, b, c, k, out, a.numel() // WORDS)
+    return out
+
+
+def ntt_words(x, logn: int, invert: bool = False, pre=None, post_c=None,
+              post_t=None):
+    """Transform of length 2^logn over dim -2 of (..., n, 8) words, in
+    Montgomery form: out[i] = sum_j (x_j pre_j) w^(ij), w^-1 with `invert`,
+    then times `post_c` and `post_t[i]` (None: no factor). The inverse's
+    1/n is the caller's to pass in `post_c`. One tile launch and one for
+    each stage above TILE_LOG on a card."""
+    dev = device_key(x.device)
+    tw, _ = word_tables(logn, invert, dev)
+    x = x.contiguous()
+    tlog = min(logn, TILE_LOG)
+    post = (post_c, post_t)
+    out = ntt_tile(x, logn, tw, pre, *(post if tlog == logn else (None,
+                                                                    None)))
+    for s in range(tlog + 1, logn + 1):
+        out = ntt_stage(out, logn, s, tw,
+                        *(post if s == logn else (None, None)))
+    return out
+
+
+# -- the limb signature -----------------------------------------------------------------
+
+def ntt_plain(a: torch.Tensor, logn: int, invert: bool = False) -> torch.Tensor:
+    """Plain NTT over the second-last dim of (..., n, 16) Montgomery limbs
+    on any device: out[i] = sum_j a_j w^(ij); with `invert`, the inverse
+    (1/n folded in)."""
+    rev, tw, n_inv = _stage_consts(logn, invert, device_key(a.device))
+    a = _butterflies(a[..., rev, :], 1, logn, tw)
     if invert:
         a = FR_CTX.mont_mul(a, n_inv)
     return a
+
+
+def _limbs_via_words(a, logn, invert, pre=None, post_t=None):
+    dev = device_key(a.device)
+    post_c = fr_const(fr_inv(1 << logn), dev) if invert else None
+    return words_to_limbs(ntt_words(limbs_to_words(a.contiguous()), logn,
+                                    invert, pre, post_c, post_t))
+
+
+def ntt(a: torch.Tensor, logn: int, invert: bool = False) -> torch.Tensor:
+    """NTT over the second-last dim of (..., n, 16) Montgomery limbs:
+    out[i] = sum_j a_j w^(ij); with `invert`, the inverse (1/n folded in).
+    Through `ntt_words`: the kernels on a card, their plain versions on the
+    CPU."""
+    return _limbs_via_words(a, logn, invert)
 
 
 def intt(a: torch.Tensor, logn: int) -> torch.Tensor:
     return ntt(a, logn, invert=True)
 
 
+def coset_ntt_plain(a: torch.Tensor, logn: int, g: int) -> torch.Tensor:
+    return ntt_plain(FR_CTX.mont_mul(
+        a, _coset_consts(logn, g, False, device_key(a.device))), logn)
+
+
+def coset_intt_plain(a: torch.Tensor, logn: int, g: int) -> torch.Tensor:
+    return FR_CTX.mont_mul(ntt_plain(a, logn, invert=True),
+                           _coset_consts(logn, g, True, device_key(a.device)))
+
+
 def coset_ntt(a: torch.Tensor, logn: int, g: int) -> torch.Tensor:
     """Evaluate on the coset g<w>: NTT(a_i g^i)."""
-    return ntt(FR_CTX.mont_mul(a, _coset_consts(logn, g, False, device_key(a.device))),
-               logn)
+    return _limbs_via_words(a, logn, False, pre=coset_words(
+        logn, g, False, device_key(a.device)))
 
 
 def coset_intt(a: torch.Tensor, logn: int, g: int) -> torch.Tensor:
     """Inverse of coset_ntt."""
-    return FR_CTX.mont_mul(intt(a, logn),
-                           _coset_consts(logn, g, True, device_key(a.device)))
+    return _limbs_via_words(a, logn, True, post_t=coset_words(
+        logn, g, True, device_key(a.device)))

@@ -1,0 +1,414 @@
+"""The port's H pipeline kernels (csrc/fr_rows.cu, csrc/fr_ntt.cu) through
+their wrappers and plain versions, against the JAX package.
+
+On the CPU each wrapper runs its kernel's plain version, so these tests
+hold the word-level pipeline the card runs (compressed rows, the tile and
+stage passes with their fused table multiplies, the pointwise step, the
+witness converted once) against the reference's XLA programs: `_rows_fn`
+(`eval_rows_device`), `_h_graph` (reached by `compute_h` below 2^13 rows),
+the transforms of `infimum_tpu/ntt/ntt.py` and the zkey's odd-coset
+steps. Inputs come from numpy seeds; every value is a reduced field
+element, so every comparison is exact (tolerance 0). The `cuda` tests
+hold each kernel against its plain version on a card and skip without
+one."""
+
+import pathlib
+import random
+import re
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from infimum_tpu.ff.bn254 import FR_MOD
+from infimum_tpu.ff.fp import FR_CTX as REF_FR
+from infimum_tpu.groth16 import groth16 as ref
+from infimum_tpu.groth16 import zkey as ref_zkey
+from infimum_tpu.groth16.r1cs import ConstraintSystem, LC
+from infimum_tpu.groth16.rowval import SparseRows as RefRows, eval_rows_device
+from infimum_tpu.ntt import ntt as ref_ntt
+from infimum_tpu_torch import kernels
+from infimum_tpu_torch.ff.fp import (
+    FR_CTX, limbs_to_words, tensor_to_ints, to_tensor, words_to_limbs,
+)
+from infimum_tpu_torch.groth16 import groth16 as port
+from infimum_tpu_torch.groth16 import rowval
+from infimum_tpu_torch.groth16 import zkey as port_zkey
+from infimum_tpu_torch.ntt import ntt as N
+
+from test_groth16 import _cubic_circuit, _toy_circuit
+
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
+P = FR_MOD
+COSET_GEN = 5
+NEW_KERNELS = ("fr_rows", "fr_ntt_tile", "fr_ntt_stage", "fr_pointwise")
+
+
+def _full_width(seed, n):
+    words = np.random.default_rng(seed).integers(0, 1 << 32, size=(n, 8),
+                                                 dtype=np.uint64)
+    return [sum(int(w) << (32 * i) for i, w in enumerate(row)) % P
+            for row in words]
+
+
+def _chain(n, seed):
+    """out = x * prod_i (x + k_i) over n multiplications, full-width k_i:
+    n + 3 QAP rows, so n = 10 gives a domain of 2^4 and n = 200 of 2^8."""
+    ks = _full_width(seed, n + 1)
+    cs = ConstraintSystem()
+    out = cs.alloc_public()
+    x = cs.alloc()
+    acc = LC.var(x)
+    for k in ks[:n]:
+        acc = cs.mul(acc, LC.var(x) + LC.const(k))
+    cs.enforce_zero(acc - LC.var(out))
+    v = ks[n]
+    for k in ks[:n]:
+        v = v * (ks[n] + k) % P
+    w = cs.compute_witness({out: v, x: ks[n]})
+    assert cs.check(w)
+    return cs, w
+
+
+def _circuit(name):
+    if name == "toy":
+        cs, prod, total, x, y = _toy_circuit()
+        w = cs.compute_witness({prod: 21, total: 10, x: 3, y: 7})
+    elif name == "cubic":
+        cs, out, x = _cubic_circuit()
+        w = cs.compute_witness({out: (47 ** 3 + 47 + 5) % P, x: 47})
+    else:
+        cs, w = _chain(int(name[len("chain"):]), 11)
+    assert cs.check(w)
+    return cs, w
+
+
+def _words_of(limbs) -> torch.Tensor:
+    return limbs_to_words(to_tensor(np.asarray(limbs), "cpu"))
+
+
+def _zkey_triples(seed, m, nv, nterms):
+    """zkey-style (matrix, row, signal, value) triples: shuffled, with
+    repeated (matrix, row, signal) entries, some rows empty."""
+    rng = np.random.default_rng(seed)
+    vals = _full_width(seed + 1, nterms)
+    rows = rng.integers(0, m - 2, nterms)
+    sigs = rng.integers(0, nv, nterms)
+    mats = rng.integers(0, 2, nterms)
+    out = [(int(a), int(r), int(s), v)
+           for a, r, s, v in zip(mats, rows, sigs, vals)]
+    out += out[:nterms // 4]                   # repeats, summed
+    order = rng.permutation(len(out))
+    return [out[i] for i in order]
+
+
+# -- (a) the compressed-row tables ------------------------------------------------
+
+@pytest.mark.parametrize("name", ["toy", "cubic", "chain200"])
+def test_compressed_rows_match_reference(name):
+    """The compressed rows of an R1CS hold each row's terms, and a plain
+    walk over them (`rows_plain`, the row kernel's plain version) equals
+    the reference's `eval_rows_device` limb for limb."""
+    cs, w = _circuit(name)
+    m = port._domain_size(cs)
+    rows = port._qap_rows(cs)
+    sp = port.sparse_rows(cs, "cpu")
+    assert sp.names == ("A", "B", "C") and sp.num_rows == len(rows)
+    rowptr = sp.rowptr.tolist()
+    assert rowptr[0] == 0 and rowptr == sorted(rowptr)
+    coeffs = FR_CTX.decode(words_to_limbs(sp.coeffs))
+    for k in range(3):
+        for j, triple in enumerate(rows):
+            lo, hi = rowptr[k * len(rows) + j], rowptr[k * len(rows) + j + 1]
+            got = sorted(zip(sp.cols[lo:hi].tolist(), coeffs[lo:hi]))
+            assert got == sorted((c, v % P) for c, v in triple[k].terms.items())
+    w_mont = rowval.to_mont_words(rowval.ints_to_words(w, "cpu"))
+    got = rowval.rows_plain(sp, w_mont, m)
+    want = eval_rows_device(RefRows(rows, len(rows)), w, m)
+    for g, r in zip(got, want):
+        assert torch.equal(g, _words_of(r))
+
+
+def test_zkey_triples_shuffled_with_repeats_match_reference():
+    """zkey-style triples in any order, with repeated entries: the rows
+    are sorted once, and the plain walk equals the reference zkey path's
+    A and B rows (`_ab_rows_device`)."""
+    m, nv = 32, 40
+    triples = _zkey_triples(5, m, nv, 300)
+    w = _full_width(6, nv)
+    mats = {"A": ([], [], []), "B": ([], [], [])}
+    for mat, row, sig, val in triples:
+        for lst, x in zip(mats["AB"[mat]], (val, sig, row)):
+            lst.append(x)
+    sp = rowval.SparseRows(mats, m, "cpu")
+    assert sp.nnz == len(triples)
+    assert sp.longest == int(np.bincount(
+        [2 * r + a for a, r, _, _ in triples]).max())
+    w_mont = rowval.to_mont_words(rowval.ints_to_words(w, "cpu"))
+    got = rowval.rows_words(sp, w_mont, m)
+    want = ref_zkey._ab_rows_device(
+        types.SimpleNamespace(coeffs=triples, domain_size=m), w)
+    for g, r in zip(got, want):
+        assert torch.equal(g, _words_of(r))
+    for k in range(2):                   # and python ints, row by row
+        rows = [0] * m
+        for mat, row, sig, val in triples:
+            if mat == k:
+                rows[row] = (rows[row] + val * w[sig]) % P
+        assert FR_CTX.decode(words_to_limbs(got[k])) == rows
+
+
+def test_row_of_2_16_terms_refused_like_reference():
+    """A row of 2^16 terms is refused, as the reference refuses it."""
+    n = 1 << 16
+    coeffs, cols, rids = [1] * n, list(range(n)), [0] * n
+    with pytest.raises(ValueError, match="row too long"):
+        rowval.SparseRows({"A": (coeffs, cols, rids)}, 1, "cpu")
+    big = LC()
+    big.terms = dict.fromkeys(range(n), 1)
+    with pytest.raises(ValueError, match="row too long"):
+        RefRows([(big, LC(), LC())], 1)
+    rowval.SparseRows({"A": (coeffs[1:], cols[1:], rids[1:])}, 1, "cpu")
+
+
+# -- (b) the tables the kernels read ------------------------------------------------
+
+@pytest.mark.parametrize("logn", [1, 4, 10, 11])
+def test_word_tables_match_plain_and_reference(logn):
+    """Twiddles, 1/n and the coset powers as words equal `limbs_to_words`
+    of the plain limb tables and the reference's `_stage_consts` /
+    `_coset_consts`, on both sides of the tile boundary."""
+    for invert in (False, True):
+        tw, n_inv = N.word_tables(logn, invert, "cpu")
+        _, tw_l, n_inv_l = N._stage_consts(logn, invert, "cpu")
+        rev_r, tw_r, n_inv_r = ref_ntt._stage_consts(logn, invert)
+        assert tw.shape == ((1 << logn) - 1, 8) and tw.dtype == torch.int32
+        assert torch.equal(tw, limbs_to_words(tw_l))
+        assert torch.equal(tw, _words_of(tw_r))
+        assert torch.equal(n_inv, _words_of(n_inv_r))
+        assert np.array_equal(N._bitrev(logn), rev_r)
+        assert torch.equal(N.fr_const(ref_ntt.fr_inv(1 << logn), "cpu"),
+                           n_inv)
+        cw = N.coset_words(logn, COSET_GEN, invert, "cpu")
+        assert torch.equal(cw, limbs_to_words(
+            N._coset_consts(logn, COSET_GEN, invert, "cpu")))
+        assert torch.equal(cw, _words_of(
+            ref_ntt._coset_consts(logn, COSET_GEN, invert)))
+
+
+def test_tile_log_matches_kernel_source():
+    src = (pathlib.Path(N.__file__).parents[1] / "csrc" / "fr_ntt.cu") \
+        .read_text()
+    assert int(re.search(r"constexpr int kTileLog = (\d+);", src).group(1)) \
+        == N.TILE_LOG
+
+
+@pytest.mark.parametrize("logn", [1, 4, 10, 11])
+def test_ntt_words_match_reference(logn):
+    """The kernels' composition (tile pass, stage passes, fused input and
+    output tables), run as plain versions, equals the reference's
+    `ntt_device`, `intt_device`, `coset_ntt_device` and
+    `coset_intt_device` on a batch of three."""
+    n = 1 << logn
+    enc = [REF_FR.encode(_full_width(100 * logn + b, n)) for b in range(3)]
+    x = torch.stack([_words_of(e) for e in enc])
+    dev = "cpu"
+    n_inv = N.fr_const(ref_ntt.fr_inv(n), dev)
+    cases = (
+        (N.ntt_words(x, logn), ref_ntt.ntt_device),
+        (N.ntt_words(x, logn, True, post_c=n_inv), ref_ntt.intt_device),
+        (N.ntt_words(x, logn, pre=N.coset_words(logn, COSET_GEN, False, dev)),
+         lambda a, k: ref_ntt.coset_ntt_device(a, k, COSET_GEN)),
+        (N.ntt_words(x, logn, True, post_c=n_inv,
+                     post_t=N.coset_words(logn, COSET_GEN, True, dev)),
+         lambda a, k: ref_ntt.coset_intt_device(a, k, COSET_GEN)))
+    for got, fn in cases:
+        for b in range(3):
+            assert torch.equal(got[b], _words_of(fn(jnp.asarray(enc[b]),
+                                                    logn)))
+
+
+@pytest.mark.parametrize("logn", [4, 11])
+def test_limb_transforms_match_plain_limb_transforms(logn):
+    """The limb API (`ntt`, `intt`, `coset_ntt`, `coset_intt`), which goes
+    through the words and the kernels' plain versions on the CPU, equals
+    the plain limb transforms, on a transposed view as `parallel/ntt.py`
+    hands it (so the contiguity and the word conversion are exercised)."""
+    n = 1 << logn
+    enc = np.stack([np.asarray(REF_FR.encode(_full_width(50 * logn + b, n)))
+                    for b in range(2)], axis=1)        # (n, 2, 16)
+    view = to_tensor(enc, "cpu").transpose(0, 1)      # (2, n, 16), strided
+    assert not view.is_contiguous()
+    for invert in (False, True):
+        assert torch.equal(N.ntt(view, logn, invert),
+                           N.ntt_plain(view, logn, invert))
+    assert torch.equal(N.intt(view, logn), N.ntt_plain(view, logn, True))
+    assert torch.equal(N.coset_ntt(view, logn, COSET_GEN),
+                       N.coset_ntt_plain(view, logn, COSET_GEN))
+    assert torch.equal(N.coset_intt(view, logn, COSET_GEN),
+                       N.coset_intt_plain(view, logn, COSET_GEN))
+
+
+def test_pointwise_matches_python_ints():
+    """(a.b - c) x k, the encoding (x R^2) and the decoding (x 1 in
+    standard form) against python ints."""
+    a, b, c = (_full_width(s, 50) for s in (1, 2, 3))
+    k = _full_width(4, 1)[0]
+    mont = [_words_of(REF_FR.encode(v)) for v in (a, b, c)]
+    got = N.pointwise(*mont, k=N.fr_const(k, "cpu"))
+    assert FR_CTX.decode(words_to_limbs(got)) == [
+        (x * y - z) * k % P for x, y, z in zip(a, b, c)]
+    std = rowval.ints_to_words(a, "cpu")
+    assert torch.equal(rowval.to_mont_words(std), mont[0])
+    back = N.pointwise(mont[0], k=N.fr_const(1, "cpu", mont=False))
+    assert torch.equal(back, std)
+
+
+# -- (c) the whole H stage against the reference's XLA programs --------------------
+
+@pytest.mark.parametrize("name", ["chain10", "chain200"])
+def test_h_rows_match_reference_xla(name):
+    """`h_rows` on the CPU (the witness converted once, then the rows and
+    transforms through the kernels' plain versions) equals the
+    reference's `compute_h`, which below 2^13 rows runs its compiled
+    `_rows_fn` and `_h_graph`; and the plain limb pipeline
+    (`h_rows_plain`) agrees."""
+    cs, w = _circuit(name)
+    m = port._domain_size(cs)
+    assert m == {"chain10": 16, "chain200": 256}[name]
+    assert ref._use_device_h(m)
+    ww = rowval.ints_to_words(w, "cpu")
+    h = port.h_rows(cs, ww, "cpu")
+    assert h.shape == (m, 16) and not h[m - 1].any()
+    want = ref.compute_h(cs, w)
+    assert tensor_to_ints(h)[:m - 1] == want
+    assert torch.equal(h, port.h_rows_plain(cs, w, "cpu"))
+
+
+@pytest.mark.parametrize("name", ["chain10", "chain200"])
+def test_odd_coset_rows_match_reference_zkey_path(name):
+    """`odd_coset_rows` on the CPU equals the reference zkey path's P
+    (`infimum_tpu/groth16/zkey.py:159-167`: rows, c = a.b, three iNTTs,
+    three coset NTTs with generator w_2m, a.b - c), and its plain
+    version agrees."""
+    cs, w = _circuit(name)
+    zk = port_zkey.generate_zkey(cs, random.Random(3), device="cpu")
+    m = zk.domain_size
+    logm = m.bit_length() - 1
+    eta = port_zkey._root_of_unity(2 * m)
+    a_e, b_e = ref_zkey._ab_rows_device(zk, w)
+    c_e = REF_FR.mont_mul(a_e, b_e)
+    ev = [ref_ntt.coset_ntt_device(ref_ntt.intt_device(v, logm), logm, eta)
+          for v in (a_e, b_e, c_e)]
+    want = REF_FR.decode(np.asarray(
+        REF_FR.sub(REF_FR.mont_mul(ev[0], ev[1]), ev[2])))
+    got = port_zkey.odd_coset_rows(zk, rowval.ints_to_words(w, "cpu"), "cpu")
+    assert tensor_to_ints(got) == want
+    assert torch.equal(got, port_zkey.odd_coset_rows_plain(zk, w, "cpu"))
+
+
+# -- (d) kernels refuse what they do not take ---------------------------------------
+
+@pytest.mark.parametrize("name", NEW_KERNELS)
+def test_new_kernels_refuse_cpu_tensors(name):
+    k = kernels.KERNELS[name]
+    before = k.launches
+    nptr = sum(t == kernels.ctypes.c_void_p for t in k.argtypes) - 1
+    nint = len(k.argtypes) - 1 - nptr
+    with pytest.raises(ValueError, match="one card"):
+        k(*[torch.zeros(8, dtype=torch.int32)] * nptr, *[1] * nint)
+    assert k.launches == before
+
+
+def test_cpu_h_rows_never_loads_the_kernels(monkeypatch):
+    """The CPU path takes the plain versions only: the library is never
+    loaded and no launch is counted; a tensor on another device is
+    refused."""
+    def refuse():
+        raise AssertionError("kernel library loaded on the CPU path")
+
+    monkeypatch.setattr(kernels, "_lib", None)
+    monkeypatch.setattr(kernels, "library", refuse)
+    kernels.reset_counts()
+    cs, w = _circuit("cubic")
+    port.h_rows(cs, w, "cpu")
+    zk = port_zkey.generate_zkey(cs, random.Random(3), device="cpu")
+    port_zkey.odd_coset_rows(zk, w, "cpu")
+    assert kernels._lib is None
+    assert all(kernels.launch_counts()[k] == 0 for k in NEW_KERNELS)
+    meta = torch.zeros((4, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no Fr kernel"):
+        N.pointwise(meta)
+
+
+# -- (e) on a card: each kernel against its plain version ------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("logn", [1, 4, 10, 11, 14])
+def test_ntt_kernels_match_plain_on_card(cuda_device, logn, batch):
+    n = 1 << logn
+    x = torch.stack([_words_of(REF_FR.encode(_full_width(7 * logn + b, n)))
+                     for b in range(batch)]).to(cuda_device)
+    dev = N.device_key(cuda_device)
+    pre = N.coset_words(logn, COSET_GEN, False, dev)
+    post_c = N.fr_const(ref_ntt.fr_inv(n), dev)
+    post_t = N.coset_words(logn, COSET_GEN, True, dev)
+    for invert in (False, True):
+        tw, _ = N.word_tables(logn, invert, dev)
+        last = (post_c, post_t) if logn <= N.TILE_LOG else (None, None)
+        got = N.ntt_tile(x, logn, tw, pre, *last)
+        torch.cuda.synchronize()
+        assert torch.equal(got, N.ntt_tile_plain(x, logn, tw, pre, *last))
+        for s in range(N.TILE_LOG + 1, logn + 1):
+            post = (post_c, post_t) if s == logn else (None, None)
+            want = N.ntt_stage_plain(got, logn, s, tw, *post)
+            got = N.ntt_stage(got.clone(), logn, s, tw, *post)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+        limbs = words_to_limbs(x)
+        assert torch.equal(N.ntt(limbs, logn, invert),
+                           N.ntt_plain(limbs, logn, invert))
+    limbs = words_to_limbs(x)
+    assert torch.equal(N.coset_intt(N.coset_ntt(limbs, logn, COSET_GEN),
+                                    logn, COSET_GEN), limbs)
+
+
+@pytest.mark.cuda
+def test_pointwise_kernel_matches_plain_on_card(cuda_device):
+    a, b, c = (_words_of(REF_FR.encode(_full_width(s, 1000))).to(cuda_device)
+               for s in (1, 2, 3))
+    k = N.fr_const(12345, N.device_key(cuda_device))
+    for args in ((a, b, c, k), (a, None, None, k), (a, b, None, None),
+                 (a, None, c, None)):
+        got = N.pointwise(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, N.pointwise_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["toy", "chain200"])
+def test_rows_and_h_kernels_match_plain_on_card(cuda_device, name):
+    cs, w = _circuit(name)
+    m = port._domain_size(cs)
+    sp = port.sparse_rows(cs, cuda_device)
+    w_mont = rowval.to_mont_words(rowval.ints_to_words(w, cuda_device))
+    got = rowval.rows_words(sp, w_mont, m)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rowval.rows_plain(sp, w_mont, m))
+    kernels.reset_counts()
+    h = port.h_rows(cs, w, cuda_device)
+    assert all(kernels.launch_counts()[k] > 0 for k in NEW_KERNELS
+               if k != "fr_ntt_stage" or m > 1 << N.TILE_LOG)
+    assert torch.equal(h, port.h_rows_plain(cs, w, cuda_device))
+    assert tensor_to_ints(h)[:m - 1] == ref.compute_h_host(cs, w)
