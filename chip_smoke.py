@@ -25,15 +25,20 @@ Phases, in order; any failure raises and exits nonzero:
      limbs, equal window points as affine points) and timed; the weighted
      kernel's grid (at least one block per SM) and the adds its chunks cost
      beside the bound's; the H pipeline's kernels (`csrc/fr_rows.cu`,
-     `csrc/fr_ntt.cu`) at the process circuit's shape (2^18, B = 3, the
-     first process witness) and the tally circuit's (2^14, a witness from
-     a seed): the witness's encoding (pointwise x R^2), the row launch,
-     the coset NTT's tile launch and last stage, the coset iNTT's last
-     stage with its output factors and the pointwise step a.b - c, each
-     equal to its plain version bit for bit and timed beside its bound and
-     its plain time, then the whole `h_rows` equal to `h_rows_plain` with
-     its launches counted against the plan, its time beside the sum of
-     its launches' bounds and the function's own bound; then the
+     `csrc/fr_ntt.cu`; first their registers, shared memory and
+     residency) at the process circuit's shape (2^18, B = 3, the first
+     process witness) and the tally circuit's (2^14, a witness from a
+     seed): the witness's encoding (pointwise x R^2), the row launch and
+     its merge-path split (items a thread, the most terms a thread takes
+     beside the longest row, rows crossing a warp's end, waves), the
+     tile launch of each transform (the coset NTT's with its input table,
+     the iNTT's, the coset iNTT's in product mode a.b - c at B = 1), the
+     coset NTT's last stage and the coset iNTT's with its output factors,
+     each equal to its plain version bit for bit and timed beside its
+     bound and its plain time, then the whole `h_rows` equal to
+     `h_rows_plain` with its launches counted against the plan, its time
+     beside the sum of its launches' bounds and the function's own bound;
+     then the
      median of three steady `prove()` calls of the first process batch
      with their stage traces, the H pipeline's host enqueue time beside
      its span on the card, every kernel's launches in one steady prove and
@@ -77,7 +82,9 @@ Phases, in order; any failure raises and exits nonzero:
      its stage trace; each MSM kernel held against its plain version at
      the zkey's `h` shape (2^18 rows); the H kernels at the zkey's odd
      coset (A and B rows, c = a.b, generator w_2m, no division by Z), as
-     in phase 4, and `odd_coset_rows` against `odd_coset_rows_plain`;
+     in phase 4 with the pointwise steps c = a.b and a.b - c, the stage
+     launch there and at phase 4's process shape in turns, and
+     `odd_coset_rows` against `odd_coset_rows_plain`;
  10. the parallel witness: `PollProver.prove_poll_results` of the e2e's
      poll with forked witness workers (INFIMUM_PARALLEL_WITNESS=1) and on
      its default thread, each from a fresh prover with the e2e's seed, the
@@ -535,23 +542,36 @@ VALUE_BYTES = 32                   # one Fr value: 8 words
 
 
 def rows_work(sp, m: int, nv: int):
-    """(bytes, Fr products) of one row launch: the row pointer, each
-    term's column and coefficient, each of the nv witness values read
-    once (the witness fits in L2 however often the terms name it), each
-    row written once."""
-    return (sp.rowptr.numel() * 4 + sp.nnz * (4 + VALUE_BYTES)
-            + nv * VALUE_BYTES + sp.nmat * m * VALUE_BYTES, sp.nnz)
+    """(bytes, Fr products) of one row launch (both its grids): its
+    partition (the row ends, each thread's start, the rows crossing a
+    warp's end), each term's column and coefficient, each of the nv
+    witness values read once (the witness fits in L2 however often the
+    terms name it), each row written once."""
+    part = sp.partition(m)
+    return (nbytes(part.ends, part.slices, part.cross)
+            + sp.nnz * (4 + VALUE_BYTES) + nv * VALUE_BYTES
+            + sp.nmat * m * VALUE_BYTES, sp.nnz)
 
 
-def tile_work(B: int, logn: int, pre: bool, post: int):
-    """(bytes, Fr products) of one tile launch over B transforms: the
-    values in and out, the twiddles of its stages, the input table, the
-    output multiplies (`post` factors, a table of n where 2)."""
-    n, tlog = 1 << logn, min(logn, 10)
-    return (2 * B * n * VALUE_BYTES + ((1 << tlog) - 1) * VALUE_BYTES
-            + (n * VALUE_BYTES if pre else 0)
-            + (n * VALUE_BYTES if post == 2 else 0),
-            B * (n // 2) * tlog + (B * n if pre else 0) + B * n * post)
+def twiddle_products(n: int, s0: int, s1: int) -> int:
+    """Fr products of stages s0..s1 of one transform of n values: the
+    butterflies whose twiddle is not 1 (stage s has n / 2^s whose twiddle
+    is 1)."""
+    return sum(n // 2 - (n >> s) for s in range(s0, s1 + 1))
+
+
+def tile_work(B: int, logn: int, pre: bool, post: int,
+              product: bool = False):
+    """(bytes, Fr products) of one tile launch over B transforms at the
+    tile of ntt/ntt.py: the values in (three a transform in product mode)
+    and out, the twiddles of its stages, the input table, the output
+    multiplies (`post` factors, a table of n where 2)."""
+    from infimum_tpu_torch.ntt import ntt as N
+
+    n, tlog = 1 << logn, min(logn, N.TILE_LOG)
+    return ((B * n * (3 if product else 1) + B * n + (1 << tlog) - 1
+             + n * pre + n * (post == 2)) * VALUE_BYTES,
+            B * (twiddle_products(n, 1, tlog) + n * (pre + product + post)))
 
 
 def stage_work(B: int, logn: int, s: int, post: int):
@@ -560,7 +580,7 @@ def stage_work(B: int, logn: int, s: int, post: int):
     n = 1 << logn
     return (2 * B * n * VALUE_BYTES + (1 << (s - 1)) * VALUE_BYTES
             + (n * VALUE_BYTES if post == 2 else 0),
-            B * (n // 2) + B * n * post)
+            B * (twiddle_products(n, s, s) + n * post))
 
 
 def pointwise_work(n: int, b: bool, c: bool, k: bool):
@@ -571,21 +591,20 @@ def pointwise_work(n: int, b: bool, c: bool, k: bool):
 
 def h_launches(sp, m: int, nv: int, zkey: bool):
     """Every launch of one `h_rows` (or, with `zkey`, `odd_coset_rows`) at
-    domain m: [(kernel, bytes, Fr products)], in order."""
+    domain m and the tile of ntt/ntt.py: [(kernel, bytes, Fr products)],
+    in order."""
+    from infimum_tpu_torch.ntt import ntt as N
+
     logm = m.bit_length() - 1
+    tlog = min(logm, N.TILE_LOG)
     out = [("fr_pointwise", *pointwise_work(nv, False, False, True)),
            ("fr_rows", *rows_work(sp, m, nv))]
     if zkey:
         out.append(("fr_pointwise", *pointwise_work(m, True, False, False)))
-
-    transforms = h_transforms(zkey)
-    for i, (B, pre, post) in enumerate(transforms):
-        if i == 2:
-            out.append(("fr_pointwise", *pointwise_work(m, True, True,
-                                                        False)))
-        out.append(("fr_ntt_tile", *tile_work(B, logm, pre,
-                                              post if logm <= 10 else 0)))
-        for s in range(11, logm + 1):
+    for B, pre, post, product in h_transforms(zkey):
+        out.append(("fr_ntt_tile", *tile_work(
+            B, logm, pre, post if tlog == logm else 0, product)))
+        for s in range(tlog + 1, logm + 1):
             out.append(("fr_ntt_stage", *stage_work(
                 B, logm, s, post if s == logm else 0)))
     if zkey:
@@ -594,10 +613,12 @@ def h_launches(sp, m: int, nv: int, zkey: bool):
 
 
 def h_transforms(zkey: bool):
-    """(batch, input table, output factors) of each transform of the H
-    stage: the iNTT (x 1/n), the coset NTT, and unless `zkey` the coset
-    iNTT (x 1/(nZ) and the inverse coset powers, a table)."""
-    return [(3, False, 1), (3, True, 0)] + ([] if zkey else [(1, False, 2)])
+    """(batch, input table, output factors, product mode) of each
+    transform of the H stage: the iNTT (x 1/n), the coset NTT, and unless
+    `zkey` the coset iNTT of a.b - c (x 1/(nZ) and the inverse coset
+    powers, a table)."""
+    return [(3, False, 1, False), (3, True, 0, False)] + (
+        [] if zkey else [(1, False, 2, True)])
 
 
 def h_function_work(sp, m: int, nv: int, zkey: bool):
@@ -610,33 +631,123 @@ def h_function_work(sp, m: int, nv: int, zkey: bool):
     plan = h_launches(sp, m, nv, zkey)
     moved = sum(b for name, b, _ in plan
                 if name in ("fr_rows", "fr_pointwise"))
-    moved += sum((2 * B * m + (m - 1) + m * pre + m * (post == 2))
-                 * VALUE_BYTES for B, pre, post in h_transforms(zkey))
+    moved += sum((B * m * (3 if product else 1) + B * m + (m - 1) + m * pre
+                  + m * (post == 2)) * VALUE_BYTES
+                 for B, pre, post, product in h_transforms(zkey))
     return moved, sum(p for _, _, p in plan)
 
 
+H_RESOURCE_NAMES = (
+    ("fr_rows_kernel", "fr_rows"), ("fr_rows_carry_kernel", "fr_rows carry"),
+    ("fr_ntt_tile_kernel", "fr_ntt_tile"),
+    ("fr_ntt_stage_kernel", "fr_ntt_stage"),
+    ("fr_pointwise_kernel", "fr_pointwise"))
+
+
+def h_resources() -> None:
+    """The H kernels' registers, spills and static shared memory from
+    nvcc's --resource-usage report of this run's build, and each tile's
+    block, dynamic shared memory and resident blocks an SM (CUDA's
+    occupancy calculator)."""
+    from infimum_tpu_torch import kernels
+    from infimum_tpu_torch.ntt import ntt as N
+
+    text = kernels.BUILD_INFO.get("log", "")
+    found = []
+    for m in RESOURCES.finditer(text):
+        label = next((lab for key, lab in H_RESOURCE_NAMES
+                      if key in m.group(1)), None)
+        if label:
+            smem = re.match(r"[^\n]*?(\d+) bytes smem", text[m.end():])
+            found.append(f"{label}: {m.group(5)} registers, "
+                         f"{smem.group(1) if smem else 0} B static shared, "
+                         f"{m.group(2)} B stack, {m.group(3)}/{m.group(4)} B "
+                         f"spill stores/loads")
+    log(f"[h] resources (nvcc -Xptxas -v): "
+        f"{'; '.join(found) or 'not in this run (cached build)'}; tile "
+        f"2^{N.TILE_LOG}: {min(256, 1 << (N.TILE_LOG - 2))} threads, "
+        f"{32 << N.TILE_LOG} B dynamic shared, "
+        f"{kernels.query('inf_fr_ntt_tile_blocks_per_sm')} blocks an SM; "
+        f"rows: {kernels.query('inf_fr_rows_block')} threads, "
+        f"{kernels.query('inf_fr_rows_blocks_per_sm')} blocks an SM")
+
+
+def row_partition_line(label: str, sp, m: int) -> None:
+    """The row launch's split at domain m: items a thread and a warp, the
+    most terms any thread takes beside the longest row, the rows crossing
+    a warp's end, the grid in waves."""
+    from infimum_tpu_torch import kernels
+    from infimum_tpu_torch.groth16 import rowval as RV
+
+    part = sp.partition(m)
+    ends, slices, cross = part.host
+    step = np.diff(slices, axis=0)
+    block = kernels.query("inf_fr_rows_block")
+    blocks = -(-part.nwarps * 32 // block)
+    slots = kernels.query("inf_fr_rows_blocks_per_sm") * \
+        torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"[h {label}] fr_rows partition: {RV.ROW_ITEMS} items (terms and "
+        f"row ends) a thread, {32 * RV.ROW_ITEMS} a warp; {part.nwarps} "
+        f"warps over {ends.shape[0]} output rows and {sp.nnz} terms; the "
+        f"most terms one thread takes {int(step[:, 1].max())}, the most "
+        f"items {int(step.sum(1).max())} (longest row {sp.longest}); "
+        f"{part.ncross} rows cross a warp's end, the longest "
+        f"{int((cross[:, 2] - cross[:, 1]).max(initial=0))} warps; "
+        f"{blocks} blocks of {block} threads, {slots} resident "
+        f"({blocks / slots:.2f} waves)")
+
+
+def stage_turns(label: str, mine, other, logm: int, tw, reps: int = 10):
+    """The stage launch (B = 3, the last stage) on phase 4's process input
+    and on this phase's input in turns, each launch timed alone by CUDA
+    events on a copy made before the timing."""
+    from infimum_tpu_torch.ntt import ntt as N
+
+    times = {"process": [], label: []}
+    pools = {"process": [other.clone() for _ in range(reps)],
+             label: [mine.clone() for _ in range(reps)]}
+    for i in range(reps):
+        for name, xs in pools.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            N.ntt_stage(xs[i], logm, logm, tw)
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    log(f"[h {label}] fr_ntt_stage in turns, each launch alone (ms): "
+        + "; ".join(f"{name} mean {sum(t) / len(t):.4f} min {min(t):.4f}"
+                    for name, t in times.items())
+        + f"; card {card_line()}")
+
+
 def h_phase(label: str, sp, witness, m: int, mul_rate, whole,
-            whole_plain, zkey: bool = False) -> dict:
+            whole_plain, zkey: bool = False, stage_other=None):
     """Each H kernel at one shape of the main path against its plain
     version, bit for bit, timed by CUDA events beside its bound and its
     plain time: the witness's encoding (pointwise x R^2), the row launch
     (its plain version reads the standard-form coefficients, so the
-    card's encoding of the table is checked too), the tile launch of the
-    coset NTT (B = 3, the coset powers fused in), a stage launch of it
-    (the last), the iNTT's last stage with its output multiplies, and the
-    pointwise step a.b - c; then the whole `whole(words)` against
+    card's encoding of the table is checked too) and its partition, the
+    tile launch of each transform (the coset NTT's, B = 3 with the coset
+    powers; the iNTT's, B = 3; unless `zkey` the coset iNTT's, B = 1 in
+    product mode), the last stage launch of the coset NTT and of the
+    coset iNTT with its output multiplies, and with `zkey` the pointwise
+    steps c = a.b and a.b - c; then the whole `whole(words)` against
     `whole_plain(ints)`, its launches counted against `h_launches`, its
     time beside the sum of their bounds (this design's least time) and
-    the function's bound (`h_function_work`). A stage launch works in
-    place, so each timed call gets its own copy, made before the timing.
-    Returns per-kernel rows (error, ms, plain ms, bound ms, bound by) for
-    the report."""
+    the function's bound (`h_function_work`); with `stage_other` (phase
+    4's stage input) the stage launch at both shapes in turns. A stage launch
+    works in place, so each timed call gets its own copy, made before the
+    timing. Returns per-kernel rows (error, ms, plain ms, bound ms, bound
+    by) for the report and the coset NTT tile's output."""
     from infimum_tpu_torch import kernels
     from infimum_tpu_torch.groth16 import rowval as RV
     from infimum_tpu_torch.ntt import ntt as N
 
     dev = N.device_key("cuda")
     logm = m.bit_length() - 1
+    tlog = min(logm, N.TILE_LOG)
     ww = RV.ints_to_words(witness, "cuda")
     nv = len(witness)
     rows = {}
@@ -656,22 +767,44 @@ def h_phase(label: str, sp, witness, m: int, mul_rate, whole,
         return got
 
     r2 = N.fr_const(N.FR_CTX.R2, dev, mont=False)
-    w_mont = held("fr_pointwise (x R^2, the witness's encoding)",
-                  lambda: RV.to_mont_words(ww),
+    w_mont = held("fr_pointwise", lambda: RV.to_mont_words(ww),
                   lambda: N.pointwise_plain(ww, k=r2),
                   pointwise_work(nv, False, False, True))
     abc = held("fr_rows", lambda: RV.rows_words(sp, w_mont, m),
                lambda: RV.rows_plain(sp, w_mont, m),
                rows_work(sp, m, nv), reps=3)
+    row_partition_line(label, sp, m)
     if zkey:
-        abc = torch.cat([abc, N.pointwise(abc[0], abc[1]).unsqueeze(0)])
+        c = held("fr_pointwise (c = a.b)",
+                 lambda: N.pointwise(abc[0], abc[1]),
+                 lambda: N.pointwise_plain(abc[0], abc[1]),
+                 pointwise_work(m, True, False, False))
+        abc = torch.cat([abc, c.unsqueeze(0)])
     g = N._root_of_unity(2 * m) if zkey else 5       # groth16.COSET_GEN
     tw, _ = N.word_tables(logm, False, dev)
+    twi, _ = N.word_tables(logm, True, dev)
     pre = N.coset_words(logm, g, False, dev)
+    whole_tile = tlog == logm
+    inv_post = (N.fr_const(N.fr_inv(m), dev), None)
+    z_inv = N.fr_inv((pow(g, m, N.FR_MOD) - 1) % N.FR_MOD)
+    h_post = (N.fr_const(z_inv * N.fr_inv(m), dev, mont=False),
+              N.coset_words(logm, g, True, dev))
     tiled = held("fr_ntt_tile", lambda: N.ntt_tile(abc, logm, tw, pre),
                  lambda: N.ntt_tile_plain(abc, logm, tw, pre),
                  tile_work(abc.shape[0], logm, True, 0))
-    if logm > N.TILE_LOG:
+    last = inv_post if whole_tile else (None, None)
+    held("fr_ntt_tile (iNTT, B = 3)",
+         lambda: N.ntt_tile(abc, logm, twi, None, *last),
+         lambda: N.ntt_tile_plain(abc, logm, twi, None, *last),
+         tile_work(abc.shape[0], logm, False, 1 if whole_tile else 0))
+    if not zkey:
+        last = h_post if whole_tile else (None, None)
+        held("fr_ntt_tile (coset iNTT of a.b - c, product mode, B = 1)",
+             lambda: N.ntt_tile(tiled, logm, twi, None, *last, product=True),
+             lambda: N.ntt_tile_plain(tiled, logm, twi, None, *last,
+                                      product=True),
+             tile_work(1, logm, False, 2 if whole_tile else 0, True))
+    if logm > tlog:
         reps = 10
 
         def copies(x):
@@ -682,18 +815,20 @@ def h_phase(label: str, sp, witness, m: int, mul_rate, whole,
              lambda: N.ntt_stage(next(fresh), logm, logm, tw),
              lambda: N.ntt_stage_plain(tiled, logm, logm, tw),
              stage_work(abc.shape[0], logm, logm, 0), reps)
-        twi, _ = N.word_tables(logm, True, dev)
-        post = (N.fr_const(N.fr_inv(m), dev, mont=False),
-                N.coset_words(logm, g, True, dev))
         one = tiled[:1].contiguous()
         fresh_one = copies(one)
         held("fr_ntt_stage (last, 2 output factors, B = 1)",
-             lambda: N.ntt_stage(next(fresh_one), logm, logm, twi, *post),
-             lambda: N.ntt_stage_plain(one, logm, logm, twi, *post),
+             lambda: N.ntt_stage(next(fresh_one), logm, logm, twi, *h_post),
+             lambda: N.ntt_stage_plain(one, logm, logm, twi, *h_post),
              stage_work(1, logm, logm, 2), reps)
-    held("fr_pointwise", lambda: N.pointwise(tiled[0], tiled[1], tiled[2]),
-         lambda: N.pointwise_plain(tiled[0], tiled[1], tiled[2]),
-         pointwise_work(m, True, True, False))
+        if stage_other is not None:
+            stage_turns(label, tiled, stage_other, logm, tw)
+    if zkey:
+        k1 = N.fr_const(1, dev, mont=False)
+        held("fr_pointwise (a.b - c, x 1)",
+             lambda: N.pointwise(tiled[0], tiled[1], tiled[2], k=k1),
+             lambda: N.pointwise_plain(tiled[0], tiled[1], tiled[2], k=k1),
+             pointwise_work(m, True, True, True))
 
     # the whole pipeline, its launches and its time
     kernels.reset_counts()
@@ -722,8 +857,8 @@ def h_phase(label: str, sp, witness, m: int, mul_rate, whole,
         f"to plain bit for bit; "
         f"{sp.nnz} terms over {sp.nmat} matrices "
         f"({', '.join(str(int(x)) for x in matrix_nnz(sp))}), longest row "
-        f"{sp.longest}; card {card_line()}")
-    return rows
+        f"{sp.longest}; tile 2^{tlog}; card {card_line()}")
+    return rows, tiled
 
 
 def matrix_nnz(sp):
@@ -743,11 +878,12 @@ def _random_witness(n: int, seed: int) -> list[int]:
 def h_kernels(run, mul_rate) -> dict:
     """Phase 4's H part: the process circuit's shape (2^18, B = 3) with
     the first process witness, then the tally circuit's (2^14) with a
-    witness from a seed; each through `h_phase`. Returns the process
-    shape's rows."""
+    witness from a seed; each through `h_phase`, after the H kernels'
+    resources. Returns the process shape's rows and its stage input."""
     from infimum_tpu_torch.groth16 import groth16 as g16
 
-    out = {}
+    h_resources()
+    out = {}, None
     for label, circuit, witness in (
             ("process", run.keys.process_circuit,
              run.first_process["witness"]),
@@ -755,12 +891,13 @@ def h_kernels(run, mul_rate) -> dict:
              _random_witness(run.keys.tally_circuit.cs.num_vars,
                              H_SEED))):
         cs = circuit.cs
-        rows = h_phase(label, g16.sparse_rows(cs, "cuda"), witness,
-                       g16._domain_size(cs), mul_rate,
-                       lambda ww, cs=cs: g16.h_rows(cs, ww, "cuda"),
-                       lambda w, cs=cs: g16.h_rows_plain(cs, w, "cuda"))
+        rows, tiled = h_phase(label, g16.sparse_rows(cs, "cuda"), witness,
+                              g16._domain_size(cs), mul_rate,
+                              lambda ww, cs=cs: g16.h_rows(cs, ww, "cuda"),
+                              lambda w, cs=cs: g16.h_rows_plain(cs, w,
+                                                                "cuda"))
         if label == "process":
-            out = rows
+            out = rows, tiled
     return out
 
 
@@ -1175,7 +1312,7 @@ def scale_poll(mul_rate) -> None:
     kernel_vs_plain(pk, cs, witness, mul_rate, tag="scale ")
 
 
-def zkey_phase(run, mul_rate) -> None:
+def zkey_phase(run, mul_rate, stage_input) -> None:
     """Phase 9: the process circuit's zkey generated on the card, written
     to a file and read back (every field equal), two `prove_zkey` calls of
     the e2e's first process witness from the read zkey (the first encodes
@@ -1184,7 +1321,8 @@ def zkey_phase(run, mul_rate) -> None:
     rejected, all four MSM kernel instances launched; three steady
     `prove()` and `prove_zkey` calls of that witness in turns, with their
     stage traces; then each MSM kernel held against its plain version at
-    the zkey's `h` shape."""
+    the zkey's `h` shape, and the H kernels at its odd coset (`h_phase`,
+    the stage launch in turns with phase 4's `stage_input`)."""
     import dataclasses
     import tempfile
 
@@ -1283,7 +1421,8 @@ def zkey_phase(run, mul_rate) -> None:
                 compare=True)
     h_phase("zkey", Z.zkey_rows(back, "cuda"), witness, back.domain_size,
             mul_rate, lambda ww: Z.odd_coset_rows(back, ww, "cuda"),
-            lambda w: Z.odd_coset_rows_plain(back, w, "cuda"), zkey=True)
+            lambda w: Z.odd_coset_rows_plain(back, w, "cuda"), zkey=True,
+            stage_other=stage_input)
 
 
 def parallel_phase(run) -> None:
@@ -1745,7 +1884,8 @@ def main(argv: list[str]) -> int:
     first = run.first_process
     cmp = kernel_vs_plain(run.keys.process_pk, run.keys.process_circuit.cs,
                           first["witness"], mul_rate)
-    cmp.update(h_kernels(run, mul_rate))
+    h_rows_report, stage_input = h_kernels(run, mul_rate)
+    cmp.update(h_rows_report)
     steady_prove(run.keys.process_pk, run.keys.process_circuit.cs,
                  first["witness"], first["publics"])
 
@@ -1795,7 +1935,7 @@ def main(argv: list[str]) -> int:
                              f"{foreign_modules()[:5]}")
 
     # 9. the zkey path; 10. the parallel witness
-    zkey_phase(run, mul_rate)
+    zkey_phase(run, mul_rate, stage_input)
     parallel_phase(run)
 
     # 11. the multi-GPU slice; its ranks' launches join the report's

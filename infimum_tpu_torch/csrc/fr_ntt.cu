@@ -1,6 +1,5 @@
-// Radix-2 NTT over BN254 Fr (a tile launch and one launch a remaining
-// stage) and the elementwise Fr step of the H pipeline, for batches of
-// transforms.
+// NTT over BN254 Fr (a tile launch and one launch a remaining stage) and
+// the elementwise Fr step of the H pipeline, for batches of transforms.
 //
 // Replaces the XLA programs the JAX package compiles for its H stage:
 // infimum_tpu/ntt/ntt.py:121 `_ntt_core` (iterative decimation-in-time
@@ -13,35 +12,59 @@
 // integer as the plain version's 16 limbs, so every output equals the
 // plain version's bit for bit: each step returns a reduced value.
 //
-// What bounds it: device memory. A stage reads and writes every value
-// once (64 B a butterfly) for one Fr product (264 32-bit multiplies): at
-// 3.35 TB/s and 1.67e13 multiplies/s an H100 moves a butterfly in 19 ps
-// and multiplies it in 16 ps. A transform of 2^18 values in nine passes
-// (one tile launch for stages 1-10, one launch for each of stages 11-18)
-// moves 9 x 2 x 8 MB a transform; a single pass would move 2 x 8 MB.
+// What bounds it. The tile launch: operations. Its butterflies, the input
+// table and the fused a.b - c are Fr products of 264 multiplies: B = 3
+// transforms of 2^18 with the coset powers, stages 1-11, need 4.33M
+// products (a butterfly whose twiddle is 1 needs none), 0.068 ms at
+// 1.67e13 multiplies/s on an H100, against 0.017 ms to read and write the
+// values once at 3.35 TB/s. A product's carry chains run in order on one
+// thread (one carry flag), so only other warps hide their latency: the
+// kernel keeps about 40% of the multiply rate, as the one-stage-a-sync
+// tile before it did, and gains by the products it no longer makes and by
+// the stage launch the 2^11 tile saves (PERF.md, section 6). The stage
+// launch: device memory, it reads and writes every value once (64 B a
+// butterfly) for one product.
 //
-// Design (the first, simple one):
-// - Values are element-major, (B, n, 8) words: a thread loads a value as
-//   two 16-byte vectors, neighbouring threads neighbouring values.
-// - The tile launch: one block for 2^10 consecutive positions of one
-//   transform (all n when n <= 2^10). It gathers its bit-reversed inputs
-//   into shared memory (32 KB, word-major so that neighbouring positions
-//   are neighbouring banks), multiplies each by the input table at its
-//   natural index (the coset powers g^i of a coset NTT), runs the stages
-//   that fit in the tile with __syncthreads between them, and writes the
-//   tile back; when the tile is the whole transform, the output multiplies
-//   are fused in.
-// - The stage launch: one thread a butterfly of one global stage, in
-//   place. The last stage fuses the output multiplies: a constant (1/n,
-//   and with it the exit from Montgomery form, as a constant in standard
-//   form) and a table indexed by the output position (the inverse coset
-//   powers).
-// - The pointwise launch: one thread a value, out = (a [x b] [- c]) [x k].
-// - Products: the butterfly's product inlined (Fr::mul), the optional
-//   multiplies out of line (FrOutOfLine::mul), one copy each.
-// - The leading dim B is the grid's y (tile) or folds into the thread
-//   index (stage), so the three transforms of a prove's a, b, c run in
-//   one launch a pass.
+// Design of the tile launch (one block for 2^tlog consecutive positions
+// of one transform, tlog = kTileLog = 11, or all n when n is smaller; 11
+// gave the fastest whole H stage at 2^18 of the tiles 2^10-2^12, PERF.md
+// section 6):
+// - Butterflies in registers: a thread holds 4 values of a radix-4 group
+//   and runs two stages on them between exchanges through shared memory,
+//   so a tile of 2^11 takes five exchanges and __syncthreads, not eleven.
+//   Stages 1 and 2 multiply by 1 but for one butterfly in four (w_4):
+//   only that product is made.
+// - The gather goes straight into those registers: the first group of a
+//   thread is 4 consecutive bit-reversed positions. A block takes the
+//   column `blockIdx.x` of the (2^tlog, n / 2^tlog) view of its input,
+//   which is the tile brev(blockIdx.x), so the blocks that run together
+//   read the neighbouring 32-byte values of the same lines (on the card,
+//   a contiguous gather in its place ran no faster: the gather is not
+//   what bounds the tile).
+// - Shared memory is word-major (word w of position i at w x T + swz(i)),
+//   swizzled within each row of 32 positions so that every exchange (the
+//   first group's stride-1 positions, the radix-4 groups at h = 4, 16, ...,
+//   a last radix-2 stage) touches 32 distinct banks a warp a word
+//   (tests/test_torch_rows_partition.py checks it).
+// - Twiddles come through the read-only cache (the table of stages
+//   1..11 is 64 KB, shared by every block), three a radix-4 group:
+//   one for both butterflies of stage s, two for stage s + 1.
+// - The fused input steps: a product mode reads (3, n) values a
+//   transform and gathers a.b - c (the H stage's coset iNTT input, no
+//   pointwise launch before it), and an input table at the natural index
+//   (the coset powers); when the tile is the whole transform, the output
+//   multiplies (a constant, a table) as it writes.
+// - Blocks of 256 threads, 64 KB of dynamic shared memory, two blocks
+//   an SM (bounds for three left 80 registers, spilled 172 B and ran the
+//   process H stage 4% slower).
+// The stage launch: one thread a butterfly of one global stage, in place;
+// the last stage fuses the output multiplies: a constant (1/n, and with it
+// the exit from Montgomery form, as a constant in standard form) and a
+// table indexed by the output position (the inverse coset powers).
+// The pointwise launch: one thread a value, out = (a [x b] [- c]) [x k].
+// The leading dim B is the grid's y (tile) or folds into the thread index
+// (stage), so the three transforms of a prove's a, b, c run in one launch
+// a pass.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -50,14 +73,18 @@
 
 namespace inf {
 
-constexpr int kTileLog = 10;  // ntt/ntt.py TILE_LOG must equal it
-constexpr int kTile = 1 << kTileLog;
-constexpr int kTileThreads = 256;
+constexpr int kTileLog = 11;  // ntt/ntt.py TILE_LOG must equal it
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ Fr::E load_value(const uint32_t* p) {
   const uint4 lo = reinterpret_cast<const uint4*>(p)[0];
   const uint4 hi = reinterpret_cast<const uint4*>(p)[1];
+  return {{lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}};
+}
+
+__device__ __forceinline__ Fr::E load_twiddle(const uint32_t* p) {
+  const uint4 lo = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint4 hi = __ldg(reinterpret_cast<const uint4*>(p) + 1);
   return {{lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}};
 }
 
@@ -75,59 +102,149 @@ __device__ __forceinline__ Fr::E post_multiply(Fr::E x, const uint32_t* post_c,
   return x;
 }
 
-__global__ void __launch_bounds__(kTileThreads)
+// The tile's shared memory position of position i: i with its low five
+// bits XORed by bits 5-6, so that each exchange's warp hits 32 banks.
+__device__ __forceinline__ int swz(int i) {
+  return i ^ ((((i >> 5) & 3) * 5) | (((i >> 6) & 1) << 4));
+}
+
+__device__ __forceinline__ Fr::E smem_load(const uint32_t* s, int T, int i) {
+  const int q = swz(i);
+  Fr::E r;
+#pragma unroll
+  for (int w = 0; w < 8; ++w) r.w[w] = s[w * T + q];
+  return r;
+}
+
+__device__ __forceinline__ void smem_store(uint32_t* s, int T, int i,
+                                           const Fr::E& a) {
+  const int q = swz(i);
+#pragma unroll
+  for (int w = 0; w < 8; ++w) s[w * T + q] = a.w[w];
+}
+
+// DIT butterfly (u, v) -> (u + t v, u - t v); without t, t = 1
+__device__ __forceinline__ void butterfly(Fr::E& u, Fr::E& v, const Fr::E& t) {
+  const Fr::E x = Fr::mul(v, t);
+  v = Fr::sub(u, x);
+  u = Fr::add(u, x);
+}
+
+__device__ __forceinline__ void butterfly(Fr::E& u, Fr::E& v) {
+  const Fr::E x = v;
+  v = Fr::sub(u, x);
+  u = Fr::add(u, x);
+}
+
+// The input value at natural index r of a transform at `src`: in product
+// mode a.b - c of its three (n, 8) inputs, then times pre[r]
+__device__ __forceinline__ Fr::E gather(const uint32_t* src,
+                                        const uint32_t* pre, size_t r,
+                                        size_t n, bool product) {
+  Fr::E x = load_value(src + 8 * r);
+  if (product)
+    x = Fr::sub(FrOutOfLine::mul(x, load_value(src + 8 * (n + r))),
+                load_value(src + 8 * (2 * n + r)));
+  if (pre) x = FrOutOfLine::mul(x, load_value(pre + 8 * r));
+  return x;
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
     fr_ntt_tile_kernel(const uint32_t* __restrict__ in,
                        uint32_t* __restrict__ out,
                        const uint32_t* __restrict__ tw,
                        const uint32_t* __restrict__ pre,
                        const uint32_t* __restrict__ post_c,
                        const uint32_t* __restrict__ post_t, int logn,
-                       int tlog) {
-  __shared__ uint32_t s[8][kTile];
+                       int tlog, int product) {
+  extern __shared__ uint32_t s[];  // 8 x T words, word-major, swizzled
   const size_t n = size_t(1) << logn;
-  const int tile = 1 << tlog;
-  const uint32_t* src = in + blockIdx.y * n * 8;
-  uint32_t* dst = out + blockIdx.y * n * 8;
-  const uint32_t base = blockIdx.x << tlog;
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    const uint32_t p = base + i;
-    const uint32_t r = logn ? __brev(p) >> (32 - logn) : 0;
-    Fr::E x = load_value(src + 8 * size_t(r));
-    if (pre) x = FrOutOfLine::mul(x, load_value(pre + 8 * size_t(r)));
+  const int T = 1 << tlog;
+  const int clog = logn - tlog;    // the tile is column blockIdx.x
+  const uint32_t col = blockIdx.x;
+  const size_t base = size_t(clog ? __brev(col) >> (32 - clog) : 0) << tlog;
+  const uint32_t* src = in + size_t(blockIdx.y) * (product ? 3 : 1) * n * 8;
+  uint32_t* dst = out + size_t(blockIdx.y) * n * 8;
+  const bool whole = clog == 0;
+  const int nv = T < 4 ? T : 4;    // values of a first group
+
+  // stages 1 and 2 on groups of 4 consecutive positions, from the gather
+  for (int g = threadIdx.x; g < (T + 3) / 4; g += blockDim.x) {
+    Fr::E x[4];
 #pragma unroll
-    for (int w = 0; w < 8; ++w) s[w][i] = x.w[w];
-  }
-  __syncthreads();
-  for (int st = 1; st <= tlog; ++st) {
-    const int half = 1 << (st - 1);
-    for (int j = threadIdx.x; j < tile / 2; j += blockDim.x) {
-      const int k = j & (half - 1);
-      const int lo = ((j >> (st - 1)) << st) | k;
-      const int hi = lo + half;
-      Fr::E u, t;
-#pragma unroll
-      for (int w = 0; w < 8; ++w) {
-        u.w[w] = s[w][lo];
-        t.w[w] = s[w][hi];
+    for (int c = 0; c < 4; ++c)
+      if (c < nv) {
+        const uint32_t i = 4 * g + c;
+        const size_t row = tlog ? __brev(i) >> (32 - tlog) : 0;
+        x[c] = gather(src, pre, (row << clog) + col, n, product);
       }
-      const Fr::E v = Fr::mul(t, load_value(tw + 8 * size_t(half - 1 + k)));
-      const Fr::E a = Fr::add(u, v);
-      const Fr::E b = Fr::sub(u, v);
+    if (tlog >= 1) {
+      butterfly(x[0], x[1]);
+      if (nv == 4) butterfly(x[2], x[3]);
+    }
+    if (tlog >= 2) {
+      butterfly(x[0], x[2]);
+      butterfly(x[1], x[3], load_twiddle(tw + 8 * 2));
+    }
 #pragma unroll
-      for (int w = 0; w < 8; ++w) {
-        s[w][lo] = a.w[w];
-        s[w][hi] = b.w[w];
+    for (int c = 0; c < 4; ++c)
+      if (c < nv) {
+        if (tlog > 2) {
+          smem_store(s, T, 4 * g + c, x[c]);
+        } else {
+          const size_t p = base + 4 * g + c;
+          store_value(dst + 8 * p,
+                      whole ? post_multiply(x[c], post_c, post_t, p) : x[c]);
+        }
+      }
+  }
+
+  // stages st, st + 1 on radix-4 groups (positions k + q 4h + {0, h, 2h,
+  // 3h}, h = 2^(st-1), k < h), in place; the last pass writes the output
+  int st = 3;
+  for (; st < tlog; st += 2) {
+    __syncthreads();
+    const int lh = st - 1, h = 1 << lh;
+    const bool last = st + 1 == tlog;
+    for (int j = threadIdx.x; j < T / 4; j += blockDim.x) {
+      const int k = j & (h - 1);
+      const int p0 = ((j >> lh) << (lh + 2)) | k;
+      const Fr::E t1 = load_twiddle(tw + 8 * (h - 1 + k));
+      Fr::E x0 = smem_load(s, T, p0), x1 = smem_load(s, T, p0 + h);
+      Fr::E x2 = smem_load(s, T, p0 + 2 * h), x3 = smem_load(s, T, p0 + 3 * h);
+      butterfly(x0, x1, t1);
+      butterfly(x2, x3, t1);
+      butterfly(x0, x2, load_twiddle(tw + 8 * (2 * h - 1 + k)));
+      butterfly(x1, x3, load_twiddle(tw + 8 * (3 * h - 1 + k)));
+      if (!last) {
+        smem_store(s, T, p0, x0);
+        smem_store(s, T, p0 + h, x1);
+        smem_store(s, T, p0 + 2 * h, x2);
+        smem_store(s, T, p0 + 3 * h, x3);
+      } else {
+        const Fr::E xs[4] = {x0, x1, x2, x3};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const size_t p = base + p0 + c * h;
+          store_value(dst + 8 * p,
+                      whole ? post_multiply(xs[c], post_c, post_t, p) : xs[c]);
+        }
       }
     }
-    __syncthreads();
   }
-  const bool last = tlog == logn;
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) {
-    Fr::E x;
-#pragma unroll
-    for (int w = 0; w < 8; ++w) x.w[w] = s[w][i];
-    if (last) x = post_multiply(x, post_c, post_t, base + i);
-    store_value(dst + 8 * size_t(base + i), x);
+  // an odd last stage alone (h = T / 2): two butterflies a thread
+  if (st == tlog) {
+    __syncthreads();
+    const int h = T / 2;
+    for (int k = threadIdx.x; k < h; k += blockDim.x) {
+      Fr::E x0 = smem_load(s, T, k), x1 = smem_load(s, T, k + h);
+      butterfly(x0, x1, load_twiddle(tw + 8 * (h - 1 + k)));
+      const size_t p = base + k;
+      store_value(dst + 8 * p,
+                  whole ? post_multiply(x0, post_c, post_t, p) : x0);
+      store_value(dst + 8 * (p + h),
+                  whole ? post_multiply(x1, post_c, post_t, p + h) : x1);
+    }
   }
 }
 
@@ -174,30 +291,60 @@ __global__ void __launch_bounds__(kThreads)
   store_value(out + 8 * i, x);
 }
 
+// The tile launch's block and dynamic shared memory at tile 2^tlog: one
+// thread a group of 4 values, at most kThreads
+int tile_block(int tlog) {
+  const int groups = ((1 << tlog) + 3) / 4;
+  return groups < kThreads ? groups : kThreads;
+}
+
+size_t tile_smem(int tlog) { return tlog > 2 ? size_t(32) << tlog : 0; }
+
 }  // namespace inf
 
-// The first pass of B transforms of length 2^logn over (B, n, 8) words:
+// The first pass of B transforms of length 2^logn over (B, n, 8) words
+// (in product mode (B, 3, n, 8) words a, b, c, the transform of a.b - c):
 // the bit-reversal gather from `in`, the input table `pre` (or null), and
-// stages 1..tlog into `out` (tlog = min(logn, 10)); when tlog == logn the
-// output multiplies too (`post_c`, `post_t` or null).
+// stages 1..tlog into `out`, tlog = min(logn, kTileLog); when tlog == logn
+// the output multiplies too (`post_c`, `post_t` or null).
 extern "C" int inf_fr_ntt_tile(const void* in, void* out, const void* tw,
                                const void* pre, const void* post_c,
                                const void* post_t, int B, int logn, int tlog,
-                               void* stream) {
-  if (B < 1 || B > 65535 || logn < 0 || logn > 28 || tlog < 0 ||
-      tlog > inf::kTileLog || tlog > logn || (tlog < logn && tlog != inf::kTileLog))
+                               int product, void* stream) {
+  if (B < 1 || B > 65535 || logn < 0 || logn > 28 ||
+      tlog != (logn < inf::kTileLog ? logn : inf::kTileLog) || (product & ~1))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(1u << (logn - tlog), B);
-  inf::fr_ntt_tile_kernel<<<grid, inf::kTileThreads, 0,
+  const size_t smem = inf::tile_smem(tlog);
+  const cudaError_t err = cudaFuncSetAttribute(
+      inf::fr_ntt_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  inf::fr_ntt_tile_kernel<<<dim3(1u << (logn - tlog), B),
+                            inf::tile_block(tlog), smem,
                             (cudaStream_t)stream>>>(
       (const uint32_t*)in, (uint32_t*)out, (const uint32_t*)tw,
       (const uint32_t*)pre, (const uint32_t*)post_c, (const uint32_t*)post_t,
-      logn, tlog);
+      logn, tlog, product);
   return (int)cudaGetLastError();
 }
 
-// Stage st (> 10) of B transforms of length 2^logn, in place on `data`;
-// the output multiplies where `post_c` / `post_t` are not null.
+// resident blocks an SM of the tile launch of a transform of 2^kTileLog
+// or more, or -1
+extern "C" int inf_fr_ntt_tile_blocks_per_sm() {
+  const size_t smem = inf::tile_smem(inf::kTileLog);
+  int n = 0;
+  if (cudaFuncSetAttribute(inf::fr_ntt_tile_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, inf::fr_ntt_tile_kernel, inf::tile_block(inf::kTileLog),
+          smem) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+// Stage st (above the tile's) of B transforms of length 2^logn, in place
+// on `data`; the output multiplies where `post_c` / `post_t` are not null.
 extern "C" int inf_fr_ntt_stage(void* data, const void* tw, const void* post_c,
                                 const void* post_t, int B, int logn, int st,
                                 void* stream) {

@@ -9,20 +9,44 @@
 // each row's sum runs in Fr adds, so it is reduced at every step and the
 // result equals the plain version's limbs (a reduced Montgomery value).
 //
-// What bounds it: device memory, barely. The process circuit's three
-// matrices hold about 3.9M terms: 3.9M Fr products of 264 multiplies,
-// 0.06 ms at 1.67e13 multiplies/s on an H100, against reading 68 B a term
-// (a coefficient, a column and the witness value it names) and writing
-// 32 B a row, about 0.09 ms at 3.35 TB/s.
+// What bounds it: operations. The process circuit's three matrices hold
+// 3,870,593 terms: as many Fr products of 264 multiplies, 0.061 ms at
+// 1.67e13 multiplies/s on an H100, against about 0.05 ms to read each
+// term's coefficient and column, the witness once (it stays in L2) and
+// to write every row. The rows are very uneven (median 1-2 terms, the
+// longest 507): one thread a row left most of the card waiting on the
+// threads of the longest rows, about 5% of the bound. This design reaches
+// about 37%: its products run near 40% of the multiply rate, as the NTT
+// tile's do (a product's carry chains share one carry flag). Staging a
+// warp's coefficients and witness values in shared memory with cp.async
+// before its products, or its witness values alone, ran 51% / 26% slower
+// on the card (PERF.md, section 6): the loads are not what it waits on.
 //
-// Design (the first, simple one): compressed rows built once per matrix
-// set on its device (groth16/rowval.py `SparseRows`): a row pointer over
-// the rows of every matrix in turn (nmat x num_rows + 1 int32), the terms'
-// columns (int32) and coefficients (8 Montgomery words each), sorted by
-// matrix and row. One thread a row of one matrix, all matrices in one
-// launch; rows num_rows..m-1 (the domain's padding) are written as zero.
-// A thread walks its row alone, so the longest row (507 terms in the
-// process circuit's C) sets the time of its warp.
+// Design: merge-path sparse mat-vec (Merrill and Garland, SC16).
+// - The items are the terms and the row ends of all nmat x m output rows
+//   (empty rows and the domain's padding rows num_rows..m-1 are row ends
+//   with no term), in order: row g's terms, then its end. Each thread takes
+//   kRowItems consecutive items, a warp 32 x kRowItems, whatever the rows'
+//   lengths. groth16/rowval.py `row_partition` finds every thread's start
+//   (rows ended and terms before it) once per matrix set and domain, by a
+//   binary search over the row ends along the diagonal, and lists the rows
+//   that cross a warp's end.
+// - A warp first multiplies its terms with neighbouring lanes on
+//   neighbouring terms (16-byte coefficient loads and the columns in whole
+//   lines; the witness, 4.5 MB at the process shape, is gathered from L2)
+//   into its shared memory, word-major. Then each lane walks its items,
+//   adding the products (Fr adds) and writing every row whose end it
+//   holds, except the first, whose value waits for the lanes before it.
+// - The partial sums at the lanes' ends are combined by a segmented scan
+//   over the warp's lanes (__shfl_up_sync of the 8 words, Fr adds, reset
+//   at a lane that ends a row); each lane that ends a row adds what the
+//   lanes before it carry into its first row. So every output row has
+//   exactly one writer, and the kernel writes all of them.
+// - A warp's carry out (its part of a row that continues past its end)
+//   goes to a scratch array; a second small launch adds, for each listed
+//   row, the carries of the warps it crosses into the row. No atomics:
+//   Fr has none, and a fixed order keeps the run reproducible (Fr addition
+//   is exact, so any order gives the same reduced value).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -31,7 +55,11 @@
 
 namespace inf {
 
-constexpr int kRowThreads = 256;
+constexpr int kRowItems = 8;   // groth16/rowval.py ROW_ITEMS must equal it
+constexpr int kWarpItems = 32 * kRowItems;
+constexpr int kRowWarps = 4;   // warps a block, six blocks an SM
+constexpr int kCarryThreads = 256;
+constexpr unsigned kFullMask = 0xffffffffu;
 
 __device__ __forceinline__ Fr::E load_row_value(const uint32_t* p) {
   const uint4 lo = reinterpret_cast<const uint4*>(p)[0];
@@ -39,45 +67,148 @@ __device__ __forceinline__ Fr::E load_row_value(const uint32_t* p) {
   return {{lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}};
 }
 
-__global__ void __launch_bounds__(kRowThreads)
-    fr_rows_kernel(const int32_t* __restrict__ rowptr,
+__device__ __forceinline__ void store_row_value(uint32_t* p, const Fr::E& a) {
+  reinterpret_cast<uint4*>(p)[0] = make_uint4(a.w[0], a.w[1], a.w[2], a.w[3]);
+  reinterpret_cast<uint4*>(p)[1] = make_uint4(a.w[4], a.w[5], a.w[6], a.w[7]);
+}
+
+__device__ __forceinline__ Fr::E shfl_up_value(const Fr::E& a, int off) {
+  Fr::E r;
+#pragma unroll
+  for (int w = 0; w < 8; ++w) r.w[w] = __shfl_up_sync(kFullMask, a.w[w], off);
+  return r;
+}
+
+// `slices` holds (rows ended, terms) before each thread's items, for
+// nwarps x 32 threads and the end; `ends[g]` is the end of output row g's
+// terms (g = matrix x m + row); `carry` gets each warp's carry out.
+__global__ void __launch_bounds__(32 * kRowWarps, 6)
+    fr_rows_kernel(const int32_t* __restrict__ ends,
+                   const int32_t* __restrict__ slices,
                    const int32_t* __restrict__ cols,
                    const uint32_t* __restrict__ coeffs,
-                   const uint32_t* __restrict__ w, uint32_t* __restrict__ out,
-                   int num_rows, int m, size_t total) {
-  const size_t g = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (g >= total) return;
-  const size_t mat = g / m;
-  const int row = int(g - mat * m);
-  Fr::E acc = Fr::zero();
-  if (row < num_rows) {
-    const size_t r = mat * num_rows + row;
-    const int end = rowptr[r + 1];
-    for (int k = rowptr[r]; k < end; ++k)
-      acc = Fr::add(acc, Fr::mul(load_row_value(coeffs + 8 * size_t(k)),
-                                 load_row_value(w + 8 * size_t(cols[k]))));
+                   const uint32_t* __restrict__ w, uint32_t* __restrict__ carry,
+                   uint32_t* __restrict__ out, int nwarps) {
+  __shared__ uint32_t prods[kRowWarps][8][kWarpItems];
+  const int lane = threadIdx.x & 31;
+  const int wib = threadIdx.x >> 5;
+  const int warp = blockIdx.x * kRowWarps + wib;
+  if (warp >= nwarps) return;  // whole warps only
+  uint32_t(*p)[kWarpItems] = prods[wib];
+  const int* sl = slices + 2 * (32 * warp + lane);
+  const int i0 = sl[0], j0 = sl[1], i1 = sl[2], j1 = sl[3];
+  const int jw = __shfl_sync(kFullMask, j0, 0);
+  const int nterms = __shfl_sync(kFullMask, j1, 31) - jw;
+
+  // the warp's products, neighbouring lanes on neighbouring terms
+  for (int k = lane; k < nterms; k += 32) {
+    const size_t t = size_t(jw) + k;
+    const Fr::E x = Fr::mul(load_row_value(coeffs + 8 * t),
+                            load_row_value(w + 8 * size_t(cols[t])));
+#pragma unroll
+    for (int v = 0; v < 8; ++v) p[v][k] = x.w[v];
   }
-  uint4* o = reinterpret_cast<uint4*>(out + 8 * g);
-  o[0] = make_uint4(acc.w[0], acc.w[1], acc.w[2], acc.w[3]);
-  o[1] = make_uint4(acc.w[4], acc.w[5], acc.w[6], acc.w[7]);
+  __syncwarp();
+
+  // this lane's items: the rows i0..i1-1 end here, terms j0..j1-1
+  Fr::E acc = Fr::zero(), first = Fr::zero();
+  int k = j0 - jw;
+  for (int g = i0; g < i1; ++g) {
+    for (const int e = ends[g] - jw; k < e; ++k) {
+      Fr::E x;
+#pragma unroll
+      for (int v = 0; v < 8; ++v) x.w[v] = p[v][k];
+      acc = Fr::add(acc, x);
+    }
+    if (g == i0)
+      first = acc;  // waits for what the lanes before carry into it
+    else
+      store_row_value(out + 8 * size_t(g), acc);
+    acc = Fr::zero();
+  }
+  for (const int e = j1 - jw; k < e; ++k) {
+    Fr::E x;
+#pragma unroll
+    for (int v = 0; v < 8; ++v) x.w[v] = p[v][k];
+    acc = Fr::add(acc, x);
+  }
+
+  // segmented inclusive scan of the carries over the lanes, reset at a
+  // lane that ends a row: x = this lane's carry into row i1 with those of
+  // the lanes before it since the last lane that ended a row
+  const bool ends_row = i1 > i0;
+  bool reset = ends_row;
+  Fr::E x = acc;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const Fr::E o = shfl_up_value(x, off);
+    const bool o_reset = __shfl_up_sync(kFullMask, int(reset), off);
+    if (lane >= off) {
+      if (!reset) x = Fr::add(x, o);
+      reset = reset || o_reset;
+    }
+  }
+  Fr::E in = shfl_up_value(x, 1);
+  if (lane == 0) in = Fr::zero();
+  if (ends_row) store_row_value(out + 8 * size_t(i0), Fr::add(first, in));
+  if (lane == 31) store_row_value(carry + 8 * size_t(warp), x);
+}
+
+// For each listed row (row, first warp, end warp): the carries of the
+// warps whose end falls inside the row, added into it.
+__global__ void __launch_bounds__(kCarryThreads)
+    fr_rows_carry_kernel(const int32_t* __restrict__ cross,
+                         const uint32_t* __restrict__ carry,
+                         uint32_t* __restrict__ out, int ncross) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= ncross) return;
+  const int row = cross[3 * c], a = cross[3 * c + 1], b = cross[3 * c + 2];
+  uint32_t* o = out + 8 * size_t(row);
+  Fr::E acc = load_row_value(o);
+  for (int i = a; i < b; ++i)
+    acc = Fr::add(acc, load_row_value(carry + 8 * size_t(i)));
+  store_row_value(o, acc);
 }
 
 }  // namespace inf
 
-// (nmat, m, 8) words `out`: row j < num_rows of matrix i is the sum over
-// terms rowptr[i num_rows + j] .. rowptr[i num_rows + j + 1] - 1 of
-// coeffs[k] x w[cols[k]] (Montgomery products), rows num_rows..m-1 zero.
-extern "C" int inf_fr_rows(const void* rowptr, const void* cols,
-                           const void* coeffs, const void* w, void* out,
-                           int num_rows, int m, int nmat, void* stream) {
-  if (num_rows < 0 || m < num_rows || nmat < 0)
+// (nmat, m, 8) words `out`, every row written: row g (= matrix x m + row)
+// is the sum over its terms ends[g-1] .. ends[g] - 1 of coeffs[k] x
+// w[cols[k]] (Montgomery products), zero for a row with no term. `slices`
+// ((nwarps x 32 + 1) x 2 int32) and `cross` (ncross x 3 int32) are
+// groth16/rowval.py `row_partition`'s; `carry` is nwarps x 8 words of
+// scratch. Two launches: the rows, then the carries across warps.
+extern "C" int inf_fr_rows(const void* ends, const void* slices,
+                           const void* cross, const void* cols,
+                           const void* coeffs, const void* w, void* carry,
+                           void* out, int nwarps, int ncross, void* stream) {
+  if (nwarps < 0 || ncross < 0 || ncross > nwarps)
     return (int)cudaErrorInvalidValue;
-  const size_t total = size_t(nmat) * m;
-  if (total == 0) return 0;
-  const size_t blocks = (total + inf::kRowThreads - 1) / inf::kRowThreads;
-  inf::fr_rows_kernel<<<(unsigned)blocks, inf::kRowThreads, 0,
+  if (nwarps == 0) return 0;
+  const unsigned blocks = (unsigned)((nwarps + inf::kRowWarps - 1) /
+                                     inf::kRowWarps);
+  inf::fr_rows_kernel<<<blocks, 32 * inf::kRowWarps, 0,
                         (cudaStream_t)stream>>>(
-      (const int32_t*)rowptr, (const int32_t*)cols, (const uint32_t*)coeffs,
-      (const uint32_t*)w, (uint32_t*)out, num_rows, m, total);
+      (const int32_t*)ends, (const int32_t*)slices, (const int32_t*)cols,
+      (const uint32_t*)coeffs, (const uint32_t*)w, (uint32_t*)carry,
+      (uint32_t*)out, nwarps);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || ncross == 0) return (int)err;
+  inf::fr_rows_carry_kernel<<<(ncross + inf::kCarryThreads - 1) /
+                                  inf::kCarryThreads,
+                              inf::kCarryThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)cross, (const uint32_t*)carry, (uint32_t*)out, ncross);
   return (int)cudaGetLastError();
+}
+
+// threads a block of the row launch
+extern "C" int inf_fr_rows_block() { return 32 * inf::kRowWarps; }
+
+// resident blocks an SM of the row launch, or -1
+extern "C" int inf_fr_rows_blocks_per_sm() {
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, inf::fr_rows_kernel, 32 * inf::kRowWarps, 0) != cudaSuccess)
+    return -1;
+  return n;
 }

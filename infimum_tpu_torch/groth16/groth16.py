@@ -7,10 +7,10 @@ same randomness and the same proofs:
     reduction with the extra public-input rows), every key element a
     fixed-base product on `device` (msm/fixed_base.py).
   - prove(): the witness converted once to words on `device`; row
-    evaluation and the H pipeline (3 iNTT + 3 coset NTT, the pointwise
-    step and one coset iNTT, `ab_minus_c`) on those words, through the
-    CUDA kernels of csrc/fr_rows.cu and csrc/fr_ntt.cu on a card (30
-    launches at 2^18) and their plain versions on the CPU; the five MSMs
+    evaluation and the H pipeline (3 iNTT + 3 coset NTT, a.b - c and one
+    coset iNTT, `ab_minus_c`) on those words, through the CUDA kernels of
+    csrc/fr_rows.cu and csrc/fr_ntt.cu on a card (26 launches at 2^18
+    with 2^11 tiles) and their plain versions on the CPU; the five MSMs
     (a, b1, l, h over G1 and b2 over G2) dispatched before any host wait,
     through the CUDA MSM kernels on a card; the proof assembled on the
     host (`prove_queries`, which groth16/zkey.py's prove_zkey shares).
@@ -216,10 +216,11 @@ def ab_minus_c(abc: torch.Tensor, logm: int, g: int,
     c on the domain: one batched iNTT, one coset NTT with generator `g`
     (the coset powers its input table), then a.b - c on that coset; with
     `divide_z`, divided by Z there and taken back to coefficients by a
-    coset iNTT (h's coefficients), whose output multiplies fold 1/n, 1/Z,
-    the exit from Montgomery form and the inverse coset powers. On a card
-    each step is a kernel (ntt/ntt.py): with `divide_z` and logm >= 10,
-    3 (logm - 9) + 1 launches."""
+    coset iNTT (h's coefficients) that gathers a.b - c itself (the tile's
+    product mode) and whose output multiplies fold 1/n, 1/Z, the exit
+    from Montgomery form and the inverse coset powers. On a card each
+    step is a kernel (ntt/ntt.py): with `divide_z` and logm >= TILE_LOG,
+    3 (logm - TILE_LOG + 1) launches."""
     dev = device_key(abc.device)
     m = 1 << logm
     ev = ntt_words(ntt_words(abc, logm, True, post_c=fr_const(fr_inv(m), dev)),
@@ -227,9 +228,9 @@ def ab_minus_c(abc: torch.Tensor, logm: int, g: int,
     if not divide_z:
         return pointwise(ev[0], ev[1], ev[2], k=fr_const(1, dev, mont=False))
     z_inv = fr_inv((pow(g, m, P) - 1) % P)
-    return ntt_words(pointwise(ev[0], ev[1], ev[2]), logm, True,
+    return ntt_words(ev, logm, True,
                      post_c=fr_const(z_inv * fr_inv(m), dev, mont=False),
-                     post_t=coset_words(logm, g, True, dev))
+                     post_t=coset_words(logm, g, True, dev), product=True)
 
 
 def ab_minus_c_plain(abc: torch.Tensor, logm: int, g: int,

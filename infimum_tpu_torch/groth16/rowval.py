@@ -12,8 +12,11 @@ terms, summed like any other); and, on the host, the coefficients in
 standard form. `rows_words` evaluates them against a Montgomery witness
 in words:
 
-  - on a card, one launch of `csrc/fr_rows.cu` (one thread a row, each
-    row summed in Fr adds);
+  - on a card, `csrc/fr_rows.cu`: a merge-path walk over the terms and
+    row ends of every output row, each thread a fixed slice of
+    ROW_ITEMS of them whatever the rows' lengths (`row_partition` finds
+    the slices once per domain, on the host, and keeps them on the
+    rows' device), each row summed in Fr adds;
   - on the CPU, `rows_plain`: per term mont_mul(coeff, w[col]) of the
     standard-form coefficient, in chunks of terms (the process circuit
     has about 3.9M), `index_add_` by row (the values are linear, so limb
@@ -27,6 +30,8 @@ Both give each row's reduced value, so the two agree limb for limb.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -43,6 +48,8 @@ from ..ntt.ntt import (
 
 P = FR_MOD
 TERM_CHUNK = 1 << 18
+ROW_ITEMS = 8          # csrc/fr_rows.cu kRowItems: items (terms, row ends) a thread
+WARP = 32
 
 
 def ints_to_words(xs, device) -> torch.Tensor:
@@ -78,6 +85,68 @@ def flatten_rows(rows) -> dict:
     return mats
 
 
+def row_ends(rowptr: np.ndarray, num_rows: int, nmat: int,
+             m: int) -> np.ndarray:
+    """(nmat x m,) int64 end of each output row's terms, row g = matrix x m
+    + row: the row pointer's, and for the domain's padding rows
+    num_rows..m-1 (no term) the end of their matrix's terms."""
+    idx = (np.arange(nmat)[:, None] * num_rows
+           + np.minimum(np.arange(1, m + 1), num_rows)[None, :])
+    return np.asarray(rowptr, dtype=np.int64)[idx.reshape(-1)]
+
+
+def row_partition(ends: np.ndarray):
+    """Merge-path split of the items of rows with these ends: each row's
+    terms, then its end, in row order, ROW_ITEMS a thread, 32 threads a
+    warp, whatever the rows' lengths.
+
+    Returns (slices, cross): `slices` ((nwarps x 32 + 1, 2) int64) holds
+    the rows ended and the terms before each thread's items (thread s
+    ends rows slices[s, 0] .. slices[s + 1, 0] - 1, one writer each, and
+    takes terms slices[s, 1] .. slices[s + 1, 1] - 1); `cross` ((ncross,
+    3) int64) lists each row that continues past a warp's end with the
+    warps that end inside it (row, first warp, end warp): their carries
+    go into that row."""
+    nrows = ends.shape[0]
+    nnz = int(ends[-1]) if nrows else 0
+    total = nrows + nnz
+    nwarps = -(-total // (WARP * ROW_ITEMS))
+    diag = np.minimum(np.arange(nwarps * WARP + 1, dtype=np.int64)
+                      * ROW_ITEMS, total)
+    # row g's end is item ends[g] + g; before diagonal d lie the ends
+    # below it and d minus their count terms
+    done = np.searchsorted(ends + np.arange(nrows), diag, side="left")
+    slices = np.stack([done, diag - done], axis=1)
+    row, term = slices[WARP::WARP].T           # at each warp's end
+    start = np.concatenate([[0], ends])[np.minimum(row, nrows)]
+    inside = np.flatnonzero((row < nrows) & (start < term))
+    cross = np.zeros((0, 3), dtype=np.int64)
+    if inside.size:
+        first = np.flatnonzero(np.diff(row[inside], prepend=-1))
+        last = np.append(first[1:], inside.size)
+        cross = np.stack([row[inside[first]], inside[first],
+                          inside[last - 1] + 1], axis=1)
+    return slices, cross
+
+
+@dataclasses.dataclass
+class RowPartition:
+    """`row_partition` of one SparseRows at one domain, on its device, as
+    `csrc/fr_rows.cu` reads it (int32), with its host arrays."""
+    ends: torch.Tensor       # (nmat x m,) row ends
+    slices: torch.Tensor     # (nwarps x 32 + 1, 2) rows ended, terms
+    cross: torch.Tensor      # (ncross, 3) row, first warp, end warp
+    host: tuple              # (ends, slices, cross) as numpy int64
+
+    @property
+    def nwarps(self) -> int:
+        return (self.slices.shape[0] - 1) // WARP
+
+    @property
+    def ncross(self) -> int:
+        return self.cross.shape[0]
+
+
 class SparseRows:
     """Compressed rows of sparse matrices on one device, coefficients in
     Montgomery form. `mats` maps each matrix's name to its (coeffs, cols,
@@ -111,6 +180,7 @@ class SparseRows:
         col = np.concatenate(cols or [np.zeros(0, np.int64)])
         self.nnz = int(rowptr[-1])
         self.max_col = int(col.max(initial=-1))
+        self.rowptr_host = rowptr
         self.rowptr = torch.from_numpy(rowptr.astype(np.int32)).to(device)
         self.cols = torch.from_numpy(col.astype(np.int32)).to(device)
         self.coeffs_std = ints_to_words(
@@ -123,6 +193,19 @@ class SparseRows:
     @property
     def nmat(self) -> int:
         return len(self.names)
+
+    def partition(self, m: int) -> RowPartition:
+        """The row kernel's slices at domain m, built once per domain."""
+        cache = self.__dict__.setdefault("_partitions", {})
+        if m not in cache:
+            ends = row_ends(self.rowptr_host, self.num_rows, self.nmat, m)
+            if ends.shape[0] + self.nnz >= 1 << 31:
+                raise ValueError("more than 2^31 rows and terms")
+            host = (ends, *row_partition(ends))
+            cache[m] = RowPartition(*(
+                torch.from_numpy(a.astype(np.int32)).to(self.device)
+                for a in host), host)
+        return cache[m]
 
 
 def _shift_mont(device):
@@ -175,9 +258,13 @@ def rows_words(sp: SparseRows, w_mont: torch.Tensor, m: int) -> torch.Tensor:
     if not _on_cuda(w_mont, sp.rowptr):
         return rows_plain(sp, w_mont, m)
     _words_check("w_mont", w_mont)
+    part = sp.partition(m)
     out = torch.empty((sp.nmat, m, WORDS), dtype=torch.int32,
                       device=w_mont.device)
-    kernels.KERNELS["fr_rows"](sp.rowptr, sp.cols, sp.coeffs, w_mont, out,
-                               sp.num_rows, m, sp.nmat)
+    carry = torch.empty((part.nwarps, WORDS), dtype=torch.int32,
+                        device=w_mont.device)
+    kernels.KERNELS["fr_rows"](part.ends, part.slices, part.cross, sp.cols,
+                               sp.coeffs, w_mont, carry, out, part.nwarps,
+                               part.ncross)
     return out
 

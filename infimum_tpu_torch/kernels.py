@@ -76,8 +76,8 @@ KERNELS = {
     "msm_weighted_g2": Kernel("inf_msm_weighted_g2", 4, 2),
     "poseidon_perm": Kernel("inf_poseidon_perm", 6, 3),
     "poseidon_perm_variant": Kernel("inf_poseidon_perm_variant", 6, 4),
-    "fr_rows": Kernel("inf_fr_rows", 5, 3),
-    "fr_ntt_tile": Kernel("inf_fr_ntt_tile", 6, 3),
+    "fr_rows": Kernel("inf_fr_rows", 8, 2),
+    "fr_ntt_tile": Kernel("inf_fr_ntt_tile", 6, 4),
     "fr_ntt_stage": Kernel("inf_fr_ntt_stage", 4, 3),
     "fr_pointwise": Kernel("inf_fr_pointwise", 5, 1),
 }
@@ -180,25 +180,27 @@ def library():
     return _lib
 
 
+def query(symbol: str, *args: int) -> int:
+    """An int the library reports about a kernel (a block's threads,
+    resident blocks an SM), raising where it reports -1."""
+    fn = getattr(library(), symbol)
+    fn.argtypes, fn.restype = [ctypes.c_int] * len(args), ctypes.c_int
+    n = fn(*args)
+    if n < 0:
+        raise RuntimeError(f"{symbol}{args} failed")
+    return n
+
+
 def accum_occupancy(curve: str) -> tuple[int, int]:
     """(threads a block, resident blocks an SM) of the accumulation
     kernel's instance for `curve` on the current card (CUDA's occupancy
     calculator)."""
-    lib = library()
-    block, per_sm = lib.inf_msm_accum_block, getattr(
-        lib, f"inf_msm_accum_blocks_per_sm_{curve}")
-    for fn in (block, per_sm):
-        fn.argtypes, fn.restype = [], ctypes.c_int
-    n = per_sm()
-    if n < 0:
-        raise RuntimeError(f"occupancy query failed for msm_accum_{curve}")
-    return block(), n
+    return (query("inf_msm_accum_block"),
+            query(f"inf_msm_accum_blocks_per_sm_{curve}"))
 
 
 def perm_main_variant() -> int:
     """The Poseidon kernel's main instance as `inf_poseidon_perm_variant`
     numbers its variants (bit 0: product out of line; bit 1: tables in
     shared memory)."""
-    fn = library().inf_poseidon_perm_main_variant
-    fn.argtypes, fn.restype = [], ctypes.c_int
-    return fn()
+    return query("inf_poseidon_perm_main_variant")

@@ -9,10 +9,11 @@ transforms through every stage together.
 Two layers:
   - words (`ntt_words`, `pointwise`): (..., n, 8) int32 words of
     Montgomery values, the layout of `csrc/fr_ntt.cu`. On a CUDA tensor
-    `ntt_words` is one tile launch (the bit-reversal gather, an optional
-    input table, stages 1..TILE_LOG) and one stage launch for each
-    remaining stage, the output multiplies fused into the last launch;
-    `pointwise` is one launch. On a CPU tensor each launch is replaced by
+    `ntt_words` is one tile launch (the bit-reversal gather, in product
+    mode of a.b - c from three inputs, an optional input table, stages
+    1..TILE_LOG) and one stage launch for each remaining stage, the
+    output multiplies fused into the last launch; `pointwise` is one
+    launch. On a CPU tensor each launch is replaced by
     its plain version (`ntt_tile_plain`, `ntt_stage_plain`,
     `pointwise_plain`), which compute the same values with `ff/fp.py`'s
     limb arithmetic; any other device is refused.
@@ -44,7 +45,7 @@ from ..ff.fp import (
     FR_CTX, NLIMBS, device_key, int_limbs, limbs_to_words, words_to_limbs,
 )
 
-TILE_LOG = 10          # csrc/fr_ntt.cu kTileLog: stages of the tile launch
+TILE_LOG = 11   # csrc/fr_ntt.cu kTileLog: stages of the tile launch
 WORDS = NLIMBS // 2
 
 
@@ -172,11 +173,16 @@ def _post_plain(a, post_c, post_t):
     return a
 
 
-def ntt_tile_plain(x, logn, tw, pre=None, post_c=None, post_t=None):
-    """Plain version of the tile launch over (..., n, 8) words: x times
-    `pre` (natural index), bit-reversed, stages 1..min(logn, TILE_LOG);
-    when that is every stage, times `post_c` and `post_t`."""
+def ntt_tile_plain(x, logn, tw, pre=None, post_c=None, post_t=None,
+                   product=False):
+    """Plain version of the tile launch over (..., n, 8) words: x (in
+    `product` mode a.b - c of x's (..., 3, n, 8) words) times `pre`
+    (natural index), bit-reversed, stages 1..min(logn, TILE_LOG); when
+    that is every stage, times `post_c` and `post_t`."""
     a = words_to_limbs(x)
+    if product:
+        a = FR_CTX.sub(FR_CTX.mont_mul(a[..., 0, :, :], a[..., 1, :, :]),
+                       a[..., 2, :, :])
     if pre is not None:
         a = FR_CTX.mont_mul(a, words_to_limbs(pre))
     a = a[..., torch.from_numpy(_bitrev(logn)).to(a.device), :]
@@ -209,11 +215,12 @@ def pointwise_plain(a, b=None, c=None, k=None):
 
 # -- kernel wrappers ------------------------------------------------------------------
 
-def ntt_tile(x, logn, tw, pre=None, post_c=None, post_t=None):
-    """The tile launch on a card (a new (..., n, 8) tensor), its plain
-    version on the CPU."""
+def ntt_tile(x, logn, tw, pre=None, post_c=None, post_t=None,
+             product=False):
+    """The tile launch on a card (a new (..., n, 8) tensor; in `product`
+    mode x is (..., 3, n, 8)), its plain version on the CPU."""
     if not _on_cuda(x, tw, pre, post_c, post_t):
-        return ntt_tile_plain(x, logn, tw, pre, post_c, post_t)
+        return ntt_tile_plain(x, logn, tw, pre, post_c, post_t, product)
     n = 1 << logn
     _words_check("x", x)
     _words_check("tw", tw, (n - 1, WORDS))
@@ -222,12 +229,14 @@ def ntt_tile(x, logn, tw, pre=None, post_c=None, post_t=None):
                            ("post_t", post_t, (n, WORDS))):
         if t is not None:
             _words_check(name, t, shape)
-    if x.shape[-2] != n:
-        raise ValueError(f"x: want length {n} at dim -2, got {x.shape}")
-    out = torch.empty_like(x)
+    if x.shape[-2] != n or (product and (x.dim() < 3 or x.shape[-3] != 3)):
+        raise ValueError(f"x: want (..., {'3, ' if product else ''}{n}, "
+                         f"{WORDS}), got {tuple(x.shape)}")
+    out = torch.empty(x.shape[:-3] + x.shape[-2:] if product else x.shape,
+                      dtype=x.dtype, device=x.device)
     kernels.KERNELS["fr_ntt_tile"](x, out, tw, pre, post_c, post_t,
-                                   x.numel() // (n * WORDS), logn,
-                                   min(logn, TILE_LOG))
+                                   out.numel() // (n * WORDS), logn,
+                                   min(logn, TILE_LOG), int(product))
     return out
 
 
@@ -268,19 +277,21 @@ def pointwise(a, b=None, c=None, k=None):
 
 
 def ntt_words(x, logn: int, invert: bool = False, pre=None, post_c=None,
-              post_t=None):
+              post_t=None, product=False):
     """Transform of length 2^logn over dim -2 of (..., n, 8) words, in
     Montgomery form: out[i] = sum_j (x_j pre_j) w^(ij), w^-1 with `invert`,
-    then times `post_c` and `post_t[i]` (None: no factor). The inverse's
-    1/n is the caller's to pass in `post_c`. One tile launch and one for
-    each stage above TILE_LOG on a card."""
+    then times `post_c` and `post_t[i]` (None: no factor); in `product`
+    mode x is (..., 3, n, 8) words a, b, c and x_j = a_j b_j - c_j. The
+    inverse's 1/n is the caller's to pass in `post_c`. One tile launch and
+    one for each stage above TILE_LOG on a card."""
     dev = device_key(x.device)
     tw, _ = word_tables(logn, invert, dev)
     x = x.contiguous()
     tlog = min(logn, TILE_LOG)
     post = (post_c, post_t)
     out = ntt_tile(x, logn, tw, pre, *(post if tlog == logn else (None,
-                                                                    None)))
+                                                                    None)),
+                   product=product)
     for s in range(tlog + 1, logn + 1):
         out = ntt_stage(out, logn, s, tw,
                         *(post if s == logn else (None, None)))

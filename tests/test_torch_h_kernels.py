@@ -39,6 +39,7 @@ from infimum_tpu_torch.groth16 import zkey as port_zkey
 from infimum_tpu_torch.ntt import ntt as N
 
 from test_groth16 import _cubic_circuit, _toy_circuit
+from test_torch_rows_partition import KINDS, _matrices
 
 torch.set_num_threads(1)  # the suite runs in parallel worker processes
 
@@ -206,7 +207,7 @@ def test_tile_log_matches_kernel_source():
         == N.TILE_LOG
 
 
-@pytest.mark.parametrize("logn", [1, 4, 10, 11])
+@pytest.mark.parametrize("logn", [1, 4, 10, 11, 12])
 def test_ntt_words_match_reference(logn):
     """The kernels' composition (tile pass, stage passes, fused input and
     output tables), run as plain versions, equals the reference's
@@ -250,6 +251,30 @@ def test_limb_transforms_match_plain_limb_transforms(logn):
                        N.coset_ntt_plain(view, logn, COSET_GEN))
     assert torch.equal(N.coset_intt(view, logn, COSET_GEN),
                        N.coset_intt_plain(view, logn, COSET_GEN))
+
+
+@pytest.mark.parametrize("logn", [4, 12])
+def test_tile_product_mode_equals_pointwise_then_tile(logn):
+    """The tile launch's product mode (a.b - c gathered from (B, 3, n, 8)
+    words, as the H stage's coset iNTT takes it) equals `pointwise_plain`
+    followed by `ntt_tile_plain`, with the output multiplies when the tile
+    is the whole transform; and `ntt_words` in product mode equals the
+    transform of the pointwise step, with its stage launches."""
+    n = 1 << logn
+    x = torch.stack([torch.stack([
+        _words_of(REF_FR.encode(_full_width(30 * logn + 3 * b + k, n)))
+        for k in range(3)]) for b in range(2)])       # (2, 3, n, 8)
+    dev = "cpu"
+    tw, _ = N.word_tables(logn, True, dev)
+    post = (N.fr_const(12345, dev, mont=False),
+            N.coset_words(logn, COSET_GEN, True, dev))
+    last = post if logn <= N.TILE_LOG else (None, None)
+    ab_c = N.pointwise_plain(x[:, 0], x[:, 1], x[:, 2])
+    got = N.ntt_tile_plain(x, logn, tw, None, *last, product=True)
+    assert got.shape == (2, n, 8)
+    assert torch.equal(got, N.ntt_tile_plain(ab_c, logn, tw, None, *last))
+    assert torch.equal(N.ntt_words(x, logn, True, None, *post, product=True),
+                       N.ntt_words(ab_c, logn, True, None, *post))
 
 
 def test_pointwise_matches_python_ints():
@@ -355,27 +380,35 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch", [1, 3])
-@pytest.mark.parametrize("logn", [1, 4, 10, 11, 14])
+@pytest.mark.parametrize("logn", [1, 4, 9, 10, 11, 12, 14, 18])
 def test_ntt_kernels_match_plain_on_card(cuda_device, logn, batch):
+    """Each launch against its plain version: the tile (with the input
+    table, and in product mode, which the H stage's coset iNTT uses,
+    B = 1 and 3), then each stage."""
     n = 1 << logn
     x = torch.stack([_words_of(REF_FR.encode(_full_width(7 * logn + b, n)))
                      for b in range(batch)]).to(cuda_device)
+    abc = torch.stack([x, x.roll(1, 0), x.roll(1, 1)], 1).contiguous()
     dev = N.device_key(cuda_device)
     pre = N.coset_words(logn, COSET_GEN, False, dev)
     post_c = N.fr_const(ref_ntt.fr_inv(n), dev)
     post_t = N.coset_words(logn, COSET_GEN, True, dev)
-    for invert in (False, True):
+    for invert, product in ((False, False), (True, False), (True, True)):
         tw, _ = N.word_tables(logn, invert, dev)
         last = (post_c, post_t) if logn <= N.TILE_LOG else (None, None)
-        got = N.ntt_tile(x, logn, tw, pre, *last)
+        inp, table = (abc, None) if product else (x, pre)
+        got = N.ntt_tile(inp, logn, tw, table, *last, product=product)
         torch.cuda.synchronize()
-        assert torch.equal(got, N.ntt_tile_plain(x, logn, tw, pre, *last))
+        assert torch.equal(got, N.ntt_tile_plain(inp, logn, tw, table, *last,
+                                                 product=product))
         for s in range(N.TILE_LOG + 1, logn + 1):
             post = (post_c, post_t) if s == logn else (None, None)
             want = N.ntt_stage_plain(got, logn, s, tw, *post)
             got = N.ntt_stage(got.clone(), logn, s, tw, *post)
             torch.cuda.synchronize()
             assert torch.equal(got, want)
+        if product:
+            continue
         limbs = words_to_limbs(x)
         assert torch.equal(N.ntt(limbs, logn, invert),
                            N.ntt_plain(limbs, logn, invert))
@@ -397,8 +430,24 @@ def test_pointwise_kernel_matches_plain_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["toy", "chain200"])
+@pytest.mark.parametrize("name", ["toy", "chain200", "process_mix",
+                                  "long_row", "zkey_empty_padding"])
 def test_rows_and_h_kernels_match_plain_on_card(cuda_device, name):
+    """The row kernel against its plain version on circuits and on the
+    synthetic matrices of test_torch_rows_partition.py (rows of up to 507
+    terms, a row over four warps' slices, empty and padding rows,
+    shuffled zkey triples with repeats); on the circuits, the whole
+    `h_rows` through every H kernel against its plain version and the
+    host's h."""
+    if name in KINDS:
+        mats, num_rows, m, nv, _ = _matrices(name)
+        sp = rowval.SparseRows(mats, num_rows, cuda_device)
+        w = _full_width(77, nv)
+        w_mont = rowval.to_mont_words(rowval.ints_to_words(w, cuda_device))
+        got = rowval.rows_words(sp, w_mont, m)
+        torch.cuda.synchronize()
+        assert torch.equal(got, rowval.rows_plain(sp, w_mont, m))
+        return
     cs, w = _circuit(name)
     m = port._domain_size(cs)
     sp = port.sparse_rows(cs, cuda_device)
