@@ -26,23 +26,28 @@ Phases, in order; any failure raises and exits nonzero:
      kernel's grid (at least one block per SM) and the adds its chunks cost
      beside the bound's; the H pipeline's kernels (`csrc/fr_rows.cu`,
      `csrc/fr_ntt.cu`; first their registers, shared memory and
-     residency) at the process circuit's shape (2^18, B = 3, the first
-     process witness) and the tally circuit's (2^14, a witness from a
-     seed): the witness's encoding (pointwise x R^2), the row launch and
-     its merge-path split (items a thread, the most terms a thread takes
-     beside the longest row, rows crossing a warp's end, waves), the
-     tile launch of each transform (the coset NTT's with its input table,
-     the iNTT's, the coset iNTT's in product mode a.b - c at B = 1), the
-     coset NTT's last stage and the coset iNTT's with its output factors,
-     each equal to its plain version bit for bit and timed beside its
-     bound and its plain time, then the whole `h_rows` equal to
-     `h_rows_plain` with its launches counted against the plan, its time
-     beside the sum of its launches' bounds and the function's own bound;
-     then the
+     residency, a pass block's columns) at the process circuit's shape
+     (2^18, B = 3, the first process witness) and the tally circuit's
+     (2^14, a witness from a seed): the row launch on the witness's
+     standard-form words and its merge-path split (items a thread, the
+     most terms a thread takes beside the longest row, rows crossing a
+     warp's end, waves), the tile launch of each transform (the coset
+     NTT's with its input table, the iNTT's, the coset iNTT's in PRODUCT
+     mode a.b - c at B = 1), the coset NTT's pass launch and the coset
+     iNTT's with its output factors, and the row table's c R^2 encoding
+     (the e2e's only pointwise launches, at key load: one chunk of the
+     table's standard-form coefficients x R^3), each equal to its plain
+     version bit for bit and timed, through its wrapper and as the kernel
+     alone (queued behind a spin kernel), beside its bound and plain time,
+     then the whole `h_rows` equal to `h_rows_plain` with its 7 launches
+     counted against the plan, its time beside the sum of its launches'
+     bounds and the function's own bound; a coset iNTT of 2^20 (one tile
+     and two pass launches) held launch by launch against plain; then the
      median of three steady `prove()` calls of the first process batch
      with their stage traces, the H pipeline's host enqueue time beside
-     its span on the card, every kernel's launches in one steady prove and
-     a profiled steady prove's device kernel count and busy time;
+     its span on the card, every kernel's launches in one steady prove
+     (the H stage's as planned, no pointwise launch) and a profiled
+     steady prove's device kernel count and busy time;
   5. negative checks: a tampered proof and a wrong public input are
      rejected;
   6. path checks: every MSM kernel and every H pipeline kernel was
@@ -81,10 +86,11 @@ Phases, in order; any failure raises and exits nonzero:
      `prove()` and `prove_zkey` calls of that witness in turns, each with
      its stage trace; each MSM kernel held against its plain version at
      the zkey's `h` shape (2^18 rows); the H kernels at the zkey's odd
-     coset (A and B rows, c = a.b, generator w_2m, no division by Z), as
-     in phase 4 with the pointwise steps c = a.b and a.b - c, the stage
-     launch there and at phase 4's process shape in turns, and
-     `odd_coset_rows` against `odd_coset_rows_plain`;
+     coset (A and B rows, generator w_2m, no division by Z), as in phase
+     4 with the iNTT's tile gathering a, b and c = a.b (AB mode) and the
+     pointwise step a.b - c, 6 launches, the pass launches there and at
+     phase 4's process shape in turns, and `odd_coset_rows` against
+     `odd_coset_rows_plain`;
  10. the parallel witness: `PollProver.prove_poll_results` of the e2e's
      poll with forked witness workers (INFIMUM_PARALLEL_WITNESS=1) and on
      its default thread, each from a fresh prover with the e2e's seed, the
@@ -142,15 +148,17 @@ KERNEL_ROWS = (
     ("poseidon_perm", "infimum_tpu_torch/csrc/poseidon_perm.cu",
      "infimum_tpu/hash/poseidon_pallas.py:236"),
     # counterparts of the JAX package's compiled H stage (XLA programs,
-    # not Pallas kernels): row evaluation, the NTT family, the pointwise step
+    # not Pallas kernels): row evaluation, the NTT family, and the pointwise
+    # step, which on the main path encodes the row table (c R^2) at key load
+    # in place of the reference's per-prove witness encoding
     ("fr_rows", "infimum_tpu_torch/csrc/fr_rows.cu",
      "infimum_tpu/groth16/rowval.py:92"),
     ("fr_ntt_tile", "infimum_tpu_torch/csrc/fr_ntt.cu",
      "infimum_tpu/ntt/ntt.py:121"),
-    ("fr_ntt_stage", "infimum_tpu_torch/csrc/fr_ntt.cu",
+    ("fr_ntt_pass", "infimum_tpu_torch/csrc/fr_ntt.cu",
      "infimum_tpu/ntt/ntt.py:121"),
     ("fr_pointwise", "infimum_tpu_torch/csrc/fr_ntt.cu",
-     "infimum_tpu/groth16/groth16.py:386"),
+     "infimum_tpu/groth16/rowval.py:87"),
 )
 # Bounds: the larger of bytes over the memory rate and 32-bit multiplies
 # over their rate. HBM3 of an H100 SXM: 3.35 TB/s (NVIDIA's data sheet).
@@ -521,7 +529,7 @@ def traced_prove(pk, cs, witness) -> None:
     for e in events:
         if e.get("ph") == "X" and e.get("cat") == "kernel":
             key = e.get("name", "?")
-            key = next((k for k in ("fr_rows", "fr_ntt_tile", "fr_ntt_stage",
+            key = next((k for k in ("fr_rows", "fr_ntt_tile", "fr_ntt_pass",
                                     "fr_pointwise", "msm_accum",
                                     "msm_weighted") if k in key), "other")
             names[key] = names.get(key, 0) + 1
@@ -537,8 +545,39 @@ def traced_prove(pk, cs, witness) -> None:
 
 # -- the H pipeline's kernels (phases 4 and 9) --------------------------------------
 
-H_KERNELS = ("fr_rows", "fr_ntt_tile", "fr_ntt_stage", "fr_pointwise")
+H_KERNELS = ("fr_rows", "fr_ntt_tile", "fr_ntt_pass", "fr_pointwise")
+# launches of one H stage: the rows, then a tile and a pass a transform
+# (three transforms; the zkey's two and its final pointwise step)
+H_LAUNCHES = {"process": 7, "tally": 7, "zkey": 6}
 VALUE_BYTES = 32                   # one Fr value: 8 words
+SPIN_CYCLES = 20_000_000           # torch.cuda._sleep: about 10 ms
+
+
+def alone_ms(fn, reps: int):
+    """(the card's ms a call, the host's enqueue ms, the spin's ms) of
+    `reps` calls of fn() queued behind a spin kernel (torch.cuda._sleep):
+    the CUDA events around the calls open once the spin ends, so they time
+    the calls' kernels back to back, not the wrapper's Python between
+    launches. Raises if the host had not enqueued them all by then."""
+    fn()
+    torch.cuda.synchronize()
+    spin = torch.cuda.Event(enable_timing=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    spin.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    enqueue = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    spin_ms = spin.elapsed_time(start)
+    if enqueue >= spin_ms:
+        raise AssertionError(f"the host took {enqueue:.3f} ms to enqueue "
+                             f"{reps} calls, the spin only {spin_ms:.3f}")
+    return start.elapsed_time(end) / reps, enqueue, spin_ms
 
 
 def rows_work(sp, m: int, nv: int):
@@ -560,27 +599,38 @@ def twiddle_products(n: int, s0: int, s1: int) -> int:
     return sum(n // 2 - (n >> s) for s in range(s0, s1 + 1))
 
 
-def tile_work(B: int, logn: int, pre: bool, post: int,
-              product: bool = False):
-    """(bytes, Fr products) of one tile launch over B transforms at the
-    tile of ntt/ntt.py: the values in (three a transform in product mode)
-    and out, the twiddles of its stages, the input table, the output
-    multiplies (`post` factors, a table of n where 2)."""
+def gather_counts(B: int, mode: int):
+    """(input transforms read, products the gather fuses, over n each) of
+    a tile launch writing B transforms in gather `mode`."""
+    from infimum_tpu_torch.ntt import ntt as N
+
+    return {N.VALUE: (B, 0), N.PRODUCT: (3 * B, B),
+            N.AB: (2 * B // 3, B // 3)}[mode]
+
+
+def tile_work(B: int, logn: int, pre: bool, post: int, mode: int = 0):
+    """(bytes, Fr products) of one tile launch writing B transforms at the
+    tile of ntt/ntt.py: the values in (by gather mode: one, three or two
+    thirds a transform) and out, the twiddles of its stages, the input
+    table, the output multiplies (`post` factors, a table of n where 2),
+    the gather's products (a.b)."""
     from infimum_tpu_torch.ntt import ntt as N
 
     n, tlog = 1 << logn, min(logn, N.TILE_LOG)
-    return ((B * n * (3 if product else 1) + B * n + (1 << tlog) - 1
-             + n * pre + n * (post == 2)) * VALUE_BYTES,
-            B * (twiddle_products(n, 1, tlog) + n * (pre + product + post)))
+    ins, fused = gather_counts(B, mode)
+    return ((ins * n + B * n + (1 << tlog) - 1 + n * pre + n * (post == 2))
+            * VALUE_BYTES,
+            B * twiddle_products(n, 1, tlog) + n * (B * (pre + post) + fused))
 
 
-def stage_work(B: int, logn: int, s: int, post: int):
-    """(bytes, Fr products) of the stage-s launch: the values in and out,
-    that stage's twiddles, the output table where `post` is 2."""
+def pass_work(B: int, logn: int, s0: int, s1: int, post: int):
+    """(bytes, Fr products) of the pass launch of stages s0..s1: the
+    values in and out once, those stages' twiddles once, the output table
+    where `post` is 2."""
     n = 1 << logn
-    return (2 * B * n * VALUE_BYTES + (1 << (s - 1)) * VALUE_BYTES
-            + (n * VALUE_BYTES if post == 2 else 0),
-            B * (twiddle_products(n, s, s) + n * post))
+    return (2 * B * n * VALUE_BYTES + ((1 << s1) - (1 << (s0 - 1)))
+            * VALUE_BYTES + (n * VALUE_BYTES if post == 2 else 0),
+            B * (twiddle_products(n, s0, s1) + n * post))
 
 
 def pointwise_work(n: int, b: bool, c: bool, k: bool):
@@ -591,64 +641,65 @@ def pointwise_work(n: int, b: bool, c: bool, k: bool):
 
 def h_launches(sp, m: int, nv: int, zkey: bool):
     """Every launch of one `h_rows` (or, with `zkey`, `odd_coset_rows`) at
-    domain m and the tile of ntt/ntt.py: [(kernel, bytes, Fr products)],
-    in order."""
+    domain m, the tile and the pass plan of ntt/ntt.py: [(kernel, bytes,
+    Fr products)], in order."""
     from infimum_tpu_torch.ntt import ntt as N
 
     logm = m.bit_length() - 1
-    tlog = min(logm, N.TILE_LOG)
-    out = [("fr_pointwise", *pointwise_work(nv, False, False, True)),
-           ("fr_rows", *rows_work(sp, m, nv))]
-    if zkey:
-        out.append(("fr_pointwise", *pointwise_work(m, True, False, False)))
-    for B, pre, post, product in h_transforms(zkey):
+    plan = N.pass_plan(logm)
+    out = [("fr_rows", *rows_work(sp, m, nv))]
+    for B, pre, post, mode in h_transforms(zkey):
         out.append(("fr_ntt_tile", *tile_work(
-            B, logm, pre, post if tlog == logm else 0, product)))
-        for s in range(tlog + 1, logm + 1):
-            out.append(("fr_ntt_stage", *stage_work(
-                B, logm, s, post if s == logm else 0)))
+            B, logm, pre, 0 if plan else post, mode)))
+        for s0, s1 in plan:
+            out.append(("fr_ntt_pass", *pass_work(
+                B, logm, s0, s1, post if s1 == logm else 0)))
     if zkey:
         out.append(("fr_pointwise", *pointwise_work(m, True, True, True)))
     return out
 
 
 def h_transforms(zkey: bool):
-    """(batch, input table, output factors, product mode) of each
-    transform of the H stage: the iNTT (x 1/n), the coset NTT, and unless
-    `zkey` the coset iNTT of a.b - c (x 1/(nZ) and the inverse coset
-    powers, a table)."""
-    return [(3, False, 1, False), (3, True, 0, False)] + (
-        [] if zkey else [(1, False, 2, True)])
+    """(transforms out, input table, output factors, gather mode) of each
+    transform of the H stage: the iNTT (x 1/n; the zkey's gathers a, b
+    and a.b from its two rows), the coset NTT, and unless `zkey` the coset
+    iNTT of a.b - c (x 1/(nZ) and the inverse coset powers, a table)."""
+    from infimum_tpu_torch.ntt import ntt as N
+
+    return [(3, False, 1, N.AB if zkey else N.VALUE),
+            (3, True, 0, N.VALUE)] + (
+        [] if zkey else [(1, False, 2, N.PRODUCT)])
 
 
 def h_function_work(sp, m: int, nv: int, zkey: bool):
     """(bytes, Fr products) of the whole stage with each step's values
     read and written once: the launches' row and pointwise work, and each
     transform as one pass (its values in and out, its whole twiddle table
-    and its tables once); the same Fr products as the launches. This
-    design moves more: each stage launch reads and writes the values
-    again."""
+    and its tables once); the same Fr products as the launches. Where a
+    transform's stages above the tile need more than one pass launch, the
+    design moves more than this."""
     plan = h_launches(sp, m, nv, zkey)
     moved = sum(b for name, b, _ in plan
                 if name in ("fr_rows", "fr_pointwise"))
-    moved += sum((B * m * (3 if product else 1) + B * m + (m - 1) + m * pre
+    moved += sum((gather_counts(B, mode)[0] * m + B * m + (m - 1) + m * pre
                   + m * (post == 2)) * VALUE_BYTES
-                 for B, pre, post, product in h_transforms(zkey))
+                 for B, pre, post, mode in h_transforms(zkey))
     return moved, sum(p for _, _, p in plan)
 
 
 H_RESOURCE_NAMES = (
     ("fr_rows_kernel", "fr_rows"), ("fr_rows_carry_kernel", "fr_rows carry"),
     ("fr_ntt_tile_kernel", "fr_ntt_tile"),
-    ("fr_ntt_stage_kernel", "fr_ntt_stage"),
+    ("fr_ntt_pass_kernel", "fr_ntt_pass"),
     ("fr_pointwise_kernel", "fr_pointwise"))
 
 
 def h_resources() -> None:
     """The H kernels' registers, spills and static shared memory from
-    nvcc's --resource-usage report of this run's build, and each tile's
-    block, dynamic shared memory and resident blocks an SM (CUDA's
-    occupancy calculator)."""
+    nvcc's --resource-usage report of this run's build, each tile's and
+    pass's block, dynamic shared memory and resident blocks an SM (CUDA's
+    occupancy calculator), and the columns a pass block takes at the main
+    path's shapes."""
     from infimum_tpu_torch import kernels
     from infimum_tpu_torch.ntt import ntt as N
 
@@ -663,11 +714,20 @@ def h_resources() -> None:
                          f"{smem.group(1) if smem else 0} B static shared, "
                          f"{m.group(2)} B stack, {m.group(3)}/{m.group(4)} B "
                          f"spill stores/loads")
+    cols = "; ".join(
+        f"{name} 2^{logn} B = {B}, {L} stages: 2^"
+        f"{kernels.query('inf_fr_ntt_pass_col_log', B, logn, L)} columns"
+        for name, logn in (("process", 18), ("tally", 14))
+        for B in (3, 1) for L in (logn - N.TILE_LOG,))
     log(f"[h] resources (nvcc -Xptxas -v): "
         f"{'; '.join(found) or 'not in this run (cached build)'}; tile "
         f"2^{N.TILE_LOG}: {min(256, 1 << (N.TILE_LOG - 2))} threads, "
         f"{32 << N.TILE_LOG} B dynamic shared, "
         f"{kernels.query('inf_fr_ntt_tile_blocks_per_sm')} blocks an SM; "
+        f"pass (at most {N.PASS_LOG} stages, 2^11 values, 256 threads, "
+        f"65536 B dynamic shared): "
+        f"{kernels.query('inf_fr_ntt_pass_blocks_per_sm')} blocks an SM; "
+        f"a pass block's columns: {cols}; "
         f"rows: {kernels.query('inf_fr_rows_block')} threads, "
         f"{kernels.query('inf_fr_rows_blocks_per_sm')} blocks an SM")
 
@@ -697,9 +757,9 @@ def row_partition_line(label: str, sp, m: int) -> None:
         f"({blocks / slots:.2f} waves)")
 
 
-def stage_turns(label: str, mine, other, logm: int, tw, reps: int = 10):
-    """The stage launch (B = 3, the last stage) on phase 4's process input
-    and on this phase's input in turns, each launch timed alone by CUDA
+def pass_turns(label: str, mine, other, logm: int, tw, reps: int = 10):
+    """The pass launches of a B = 3 coset NTT on phase 4's process input
+    and on this phase's input in turns, each run timed alone by CUDA
     events on a copy made before the timing."""
     from infimum_tpu_torch.ntt import ntt as N
 
@@ -712,153 +772,220 @@ def stage_turns(label: str, mine, other, logm: int, tw, reps: int = 10):
             end = torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize()
             start.record()
-            N.ntt_stage(xs[i], logm, logm, tw)
+            for s0, s1 in N.pass_plan(logm):
+                N.ntt_pass(xs[i], logm, s0, s1, tw)
             end.record()
             end.synchronize()
             times[name].append(start.elapsed_time(end))
-    log(f"[h {label}] fr_ntt_stage in turns, each launch alone (ms): "
-        + "; ".join(f"{name} mean {sum(t) / len(t):.4f} min {min(t):.4f}"
-                    for name, t in times.items())
+    log(f"[h {label}] fr_ntt_pass in turns, each transform's passes alone "
+        f"(ms): " + "; ".join(f"{name} mean {sum(t) / len(t):.4f} min "
+                              f"{min(t):.4f}" for name, t in times.items())
         + f"; card {card_line()}")
 
 
 def h_phase(label: str, sp, witness, m: int, mul_rate, whole,
-            whole_plain, zkey: bool = False, stage_other=None):
+            whole_plain, zkey: bool = False, pass_other=None):
     """Each H kernel at one shape of the main path against its plain
     version, bit for bit, timed by CUDA events beside its bound and its
-    plain time: the witness's encoding (pointwise x R^2), the row launch
-    (its plain version reads the standard-form coefficients, so the
-    card's encoding of the table is checked too) and its partition, the
-    tile launch of each transform (the coset NTT's, B = 3 with the coset
-    powers; the iNTT's, B = 3; unless `zkey` the coset iNTT's, B = 1 in
-    product mode), the last stage launch of the coset NTT and of the
-    coset iNTT with its output multiplies, and with `zkey` the pointwise
-    steps c = a.b and a.b - c; then the whole `whole(words)` against
-    `whole_plain(ints)`, its launches counted against `h_launches`, its
-    time beside the sum of their bounds (this design's least time) and
-    the function's bound (`h_function_work`); with `stage_other` (phase
-    4's stage input) the stage launch at both shapes in turns. A stage launch
-    works in place, so each timed call gets its own copy, made before the
-    timing. Returns per-kernel rows (error, ms, plain ms, bound ms, bound
-    by) for the report and the coset NTT tile's output."""
+    plain time, twice: through its wrapper (launches back to back, paced
+    by the host where a launch takes a few microseconds) and as the
+    kernel alone (`alone_ms`). The row launch on the witness's standard-
+    form words (its plain version reads the standard-form coefficients,
+    so the card's R^2 encoding of the table is checked too) and its
+    partition; the tile launch of each transform (the iNTT's, B = 3,
+    with `zkey` in AB mode from the two rows; the coset NTT's, B = 3 with
+    the coset powers; unless `zkey` the coset iNTT's, B = 1 in PRODUCT
+    mode); each pass launch of the coset NTT (B = 3) and the coset iNTT's
+    last pass with its output multiplies (B = 1); with `zkey` the
+    pointwise step a.b - c, else the row table's c R^2 encoding of one
+    TERM_CHUNK of its standard-form coefficients (`to_r2_words`, the
+    pointwise launches of a key load). Then the whole `whole(words)`
+    against `whole_plain(ints)`, its launches counted against
+    `h_launches` and H_LAUNCHES, its time beside the sum of their bounds
+    (this design's least time) and the function's bound
+    (`h_function_work`); with `pass_other` (phase 4's coset NTT tile
+    output) the pass launches at both shapes in turns. A pass works in
+    place, so each timed call gets its own copy, made before the timing.
+    Returns per-kernel rows (error, kernel-alone ms, plain ms, bound ms,
+    bound by) for the report and the coset NTT tile's output."""
     from infimum_tpu_torch import kernels
+    from infimum_tpu_torch.ff.fp import FR_CTX
     from infimum_tpu_torch.groth16 import rowval as RV
     from infimum_tpu_torch.ntt import ntt as N
 
     dev = N.device_key("cuda")
     logm = m.bit_length() - 1
-    tlog = min(logm, N.TILE_LOG)
+    plan = N.pass_plan(logm)
     ww = RV.ints_to_words(witness, "cuda")
     nv = len(witness)
     rows = {}
 
     def held(name, fn, plain, work, reps=10):
         ms, got = cuda_ms(fn, reps, warm=1)
+        alone, enqueue, spin = alone_ms(fn, reps)
         plain_ms, want = cuda_ms(plain, 1)
         if not torch.equal(got, want):
             raise AssertionError(f"{label}: {name} differs from its plain "
                                  f"version")
         least = bound(work[0], work[1], mul_rate)
-        log(f"[h {label}] {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} "
-            f"ms, bound {least[0]:.4f} ms ({least[1]}; {work[0]} bytes, "
-            f"{work[1]} Fr products), {least[0] / ms:.1%} of bound; equal "
-            f"to plain (max abs err 0)")
-        rows.setdefault(name, (0, ms, plain_ms, *least))
+        log(f"[h {label}] {name}: kernel alone {alone:.4f} ms (through its "
+            f"wrapper {ms:.4f} ms; {reps} calls enqueued in {enqueue:.3f} "
+            f"ms behind a {spin:.3f} ms spin), plain {plain_ms:.3f} ms, "
+            f"bound {least[0]:.4f} ms ({least[1]}; {work[0]} bytes, "
+            f"{work[1]} Fr products), {least[0] / alone:.1%} of bound; "
+            f"equal to plain (max abs err 0)")
+        rows.setdefault(name, (0, alone, plain_ms, *least))
         return got
 
-    r2 = N.fr_const(N.FR_CTX.R2, dev, mont=False)
-    w_mont = held("fr_pointwise", lambda: RV.to_mont_words(ww),
-                  lambda: N.pointwise_plain(ww, k=r2),
-                  pointwise_work(nv, False, False, True))
-    abc = held("fr_rows", lambda: RV.rows_words(sp, w_mont, m),
-               lambda: RV.rows_plain(sp, w_mont, m),
-               rows_work(sp, m, nv), reps=3)
+    def copies(x, reps=10):
+        return iter([x.clone() for _ in range(2 * reps + 2)])
+
+    ab_rows = held("fr_rows", lambda: RV.rows_words(sp, ww, m),
+                   lambda: RV.rows_plain(sp, ww, m),
+                   rows_work(sp, m, nv), reps=3)
     row_partition_line(label, sp, m)
-    if zkey:
-        c = held("fr_pointwise (c = a.b)",
-                 lambda: N.pointwise(abc[0], abc[1]),
-                 lambda: N.pointwise_plain(abc[0], abc[1]),
-                 pointwise_work(m, True, False, False))
-        abc = torch.cat([abc, c.unsqueeze(0)])
     g = N._root_of_unity(2 * m) if zkey else 5       # groth16.COSET_GEN
     tw, _ = N.word_tables(logm, False, dev)
     twi, _ = N.word_tables(logm, True, dev)
     pre = N.coset_words(logm, g, False, dev)
-    whole_tile = tlog == logm
-    inv_post = (N.fr_const(N.fr_inv(m), dev), None)
+    inv_post = (None, None) if plan else (N.fr_const(N.fr_inv(m), dev), None)
     z_inv = N.fr_inv((pow(g, m, N.FR_MOD) - 1) % N.FR_MOD)
     h_post = (N.fr_const(z_inv * N.fr_inv(m), dev, mont=False),
               N.coset_words(logm, g, True, dev))
+    if zkey:
+        abc = held("fr_ntt_tile (iNTT of a, b and a.b, AB mode, B = 3)",
+                   lambda: N.ntt_tile(ab_rows, logm, twi, None, *inv_post,
+                                      mode=N.AB),
+                   lambda: N.ntt_tile_plain(ab_rows, logm, twi, None,
+                                            *inv_post, mode=N.AB),
+                   tile_work(3, logm, False, 0 if plan else 1, N.AB))
+    else:
+        abc = ab_rows
+        held("fr_ntt_tile (iNTT, B = 3)",
+             lambda: N.ntt_tile(abc, logm, twi, None, *inv_post),
+             lambda: N.ntt_tile_plain(abc, logm, twi, None, *inv_post),
+             tile_work(3, logm, False, 0 if plan else 1))
     tiled = held("fr_ntt_tile", lambda: N.ntt_tile(abc, logm, tw, pre),
                  lambda: N.ntt_tile_plain(abc, logm, tw, pre),
-                 tile_work(abc.shape[0], logm, True, 0))
-    last = inv_post if whole_tile else (None, None)
-    held("fr_ntt_tile (iNTT, B = 3)",
-         lambda: N.ntt_tile(abc, logm, twi, None, *last),
-         lambda: N.ntt_tile_plain(abc, logm, twi, None, *last),
-         tile_work(abc.shape[0], logm, False, 1 if whole_tile else 0))
+                 tile_work(3, logm, True, 0))
     if not zkey:
-        last = h_post if whole_tile else (None, None)
-        held("fr_ntt_tile (coset iNTT of a.b - c, product mode, B = 1)",
-             lambda: N.ntt_tile(tiled, logm, twi, None, *last, product=True),
+        last = (None, None) if plan else h_post
+        held("fr_ntt_tile (coset iNTT of a.b - c, PRODUCT mode, B = 1)",
+             lambda: N.ntt_tile(tiled, logm, twi, None, *last,
+                                mode=N.PRODUCT),
              lambda: N.ntt_tile_plain(tiled, logm, twi, None, *last,
-                                      product=True),
-             tile_work(1, logm, False, 2 if whole_tile else 0, True))
-    if logm > tlog:
-        reps = 10
-
-        def copies(x):
-            return iter([x.clone() for _ in range(reps + 1)])
-
-        fresh = copies(tiled)
-        held("fr_ntt_stage",
-             lambda: N.ntt_stage(next(fresh), logm, logm, tw),
-             lambda: N.ntt_stage_plain(tiled, logm, logm, tw),
-             stage_work(abc.shape[0], logm, logm, 0), reps)
+                                      mode=N.PRODUCT),
+             tile_work(1, logm, False, 0 if plan else 2, N.PRODUCT))
+    x = tiled
+    for i, (s0, s1) in enumerate(plan):
+        fresh = copies(x)
+        x = held(f"fr_ntt_pass{'' if i == 0 else f' {s0}-{s1}'}",
+                 lambda: N.ntt_pass(next(fresh), logm, s0, s1, tw),
+                 lambda: N.ntt_pass_plain(x, logm, s0, s1, tw),
+                 pass_work(3, logm, s0, s1, 0))
+    if plan:
+        s0, s1 = plan[-1]
         one = tiled[:1].contiguous()
-        fresh_one = copies(one)
-        held("fr_ntt_stage (last, 2 output factors, B = 1)",
-             lambda: N.ntt_stage(next(fresh_one), logm, logm, twi, *h_post),
-             lambda: N.ntt_stage_plain(one, logm, logm, twi, *h_post),
-             stage_work(1, logm, logm, 2), reps)
-        if stage_other is not None:
-            stage_turns(label, tiled, stage_other, logm, tw)
+        fresh = copies(one)
+        held(f"fr_ntt_pass (stages {s0}-{s1}, 2 output factors, B = 1)",
+             lambda: N.ntt_pass(next(fresh), logm, s0, s1, twi, *h_post),
+             lambda: N.ntt_pass_plain(one, logm, s0, s1, twi, *h_post),
+             pass_work(1, logm, s0, s1, 2))
+        if pass_other is not None:
+            pass_turns(label, tiled, pass_other, logm, tw)
     if zkey:
         k1 = N.fr_const(1, dev, mont=False)
         held("fr_pointwise (a.b - c, x 1)",
              lambda: N.pointwise(tiled[0], tiled[1], tiled[2], k=k1),
              lambda: N.pointwise_plain(tiled[0], tiled[1], tiled[2], k=k1),
              pointwise_work(m, True, True, True))
+    else:
+        chunk = sp.coeffs_std[:RV.TERM_CHUNK].cuda()
+        r3 = N.fr_const(FR_CTX.R2 * FR_CTX.R, dev, mont=False)
+        held("fr_pointwise", lambda: RV.to_r2_words(chunk),
+             lambda: N.pointwise_plain(chunk, k=r3),
+             pointwise_work(chunk.shape[0], False, False, True))
 
     # the whole pipeline, its launches and its time
     kernels.reset_counts()
     whole(ww)
     torch.cuda.synchronize()
     counted = {k: kernels.launch_counts()[k] for k in H_KERNELS}
-    plan = h_launches(sp, m, nv, zkey)
-    want = {k: sum(1 for name, *_ in plan if name == k) for k in H_KERNELS}
-    if counted != want:
-        raise AssertionError(f"{label}: launches {counted}, planned {want}")
+    launches = h_launches(sp, m, nv, zkey)
+    want = {k: sum(1 for name, *_ in launches if name == k)
+            for k in H_KERNELS}
+    if counted != want or len(launches) != H_LAUNCHES[label]:
+        raise AssertionError(f"{label}: launches {counted}, planned {want}, "
+                             f"want {H_LAUNCHES[label]} in all")
     ms, got = cuda_ms(lambda: whole(ww), 3, warm=1)
     plain_ms, want_out = cuda_ms(lambda: whole_plain(witness), 1)
     if not torch.equal(got, want_out):
         raise AssertionError(f"{label}: the whole pipeline differs from "
                              f"its plain version")
-    total = sum(bound(b, p, mul_rate)[0] for _, b, p in plan)
-    moved = sum(b for _, b, _ in plan)
+    total = sum(bound(b, p, mul_rate)[0] for _, b, p in launches)
+    moved = sum(b for _, b, _ in launches)
     fn_work = h_function_work(sp, m, nv, zkey)
     fn_least = bound(*fn_work, mul_rate)
-    log(f"[h {label}] whole: {len(plan)} launches ({json.dumps(counted)}),"
-        f" kernels {ms:.3f} ms, plain {plain_ms:.3f} ms; this design's "
-        f"least time (the sum of its launches' bounds) {total:.4f} ms "
-        f"({moved} bytes), {total / ms:.1%} of it; the function's bound "
-        f"{fn_least[0]:.4f} ms ({fn_least[1]}; {fn_work[0]} bytes, "
-        f"{fn_work[1]} Fr products), {fn_least[0] / ms:.1%} of it; equal "
-        f"to plain bit for bit; "
+    log(f"[h {label}] whole: {len(launches)} launches "
+        f"({json.dumps(counted)}), kernels {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms; this design's least time (the sum of its "
+        f"launches' bounds) {total:.4f} ms ({moved} bytes), {total / ms:.1%} "
+        f"of it; the function's bound {fn_least[0]:.4f} ms ({fn_least[1]}; "
+        f"{fn_work[0]} bytes, {fn_work[1]} Fr products), "
+        f"{fn_least[0] / ms:.1%} of it; equal to plain bit for bit; "
         f"{sp.nnz} terms over {sp.nmat} matrices "
         f"({', '.join(str(int(x)) for x in matrix_nnz(sp))}), longest row "
-        f"{sp.longest}; tile 2^{tlog}; card {card_line()}")
+        f"{sp.longest}; tile 2^{min(logm, N.TILE_LOG)}, passes {plan}; card "
+        f"{card_line()}")
     return rows, tiled
+
+
+def two_pass_transform(mul_rate) -> None:
+    """A coset iNTT of 2^20 values (B = 1, 1/n and the inverse coset
+    powers as output factors): one tile launch and two pass launches,
+    each launch and the whole `ntt_words` equal to the plain tile and
+    passes on the card, timed beside the sum of its launches' bounds."""
+    from infimum_tpu_torch import kernels
+    from infimum_tpu_torch.ff.fp import limbs_to_words
+    from infimum_tpu_torch.ntt import ntt as N
+
+    logn, dev = 20, N.device_key("cuda")
+    n = 1 << logn
+    plan = N.pass_plan(logn)
+    if len(plan) != 2:
+        raise AssertionError(f"2^{logn}: pass plan {plan}, want two passes")
+    x = limbs_to_words(_random_fr(np.random.default_rng(H_SEED + logn),
+                                  n)).unsqueeze(0).cuda()
+    tw, _ = N.word_tables(logn, True, dev)
+    post = (N.fr_const(N.fr_inv(n), dev), N.coset_words(logn, 5, True, dev))
+    kernels.reset_counts()
+    got = N.ntt_words(x, logn, True, None, *post)
+    torch.cuda.synchronize()
+    counts = {k: kernels.launch_counts()[k] for k in H_KERNELS}
+    if counts != {"fr_rows": 0, "fr_ntt_tile": 1, "fr_ntt_pass": 2,
+                  "fr_pointwise": 0}:
+        raise AssertionError(f"2^{logn}: launches {counts}")
+    ms, _ = cuda_ms(lambda: N.ntt_words(x, logn, True, None, *post), 3,
+                    warm=1)
+    want = N.ntt_tile_plain(x, logn, tw)
+    if not torch.equal(N.ntt_tile(x, logn, tw), want):
+        raise AssertionError(f"2^{logn}: the tile differs from plain")
+    work = [tile_work(1, logn, False, 0)]
+    for s0, s1 in plan:
+        last = post if s1 == logn else (None, None)
+        step = N.ntt_pass(want.clone(), logn, s0, s1, tw, *last)
+        want = N.ntt_pass_plain(want, logn, s0, s1, tw, *last)
+        if not torch.equal(step, want):
+            raise AssertionError(f"2^{logn}: pass {s0}-{s1} differs from "
+                                 f"plain")
+        work.append(pass_work(1, logn, s0, s1, 2 if s1 == logn else 0))
+    if not torch.equal(got, want):
+        raise AssertionError(f"2^{logn}: ntt_words differs from plain")
+    least = sum(bound(b, p, mul_rate)[0] for b, p in work)
+    log(f"[h 2^{logn}] coset iNTT, B = 1, tile and passes {plan}: each "
+        f"launch and the whole equal to plain (max abs err 0); kernels "
+        f"{ms:.4f} ms, the launches' bounds {least:.4f} ms "
+        f"({least / ms:.1%}); card {card_line()}")
 
 
 def matrix_nnz(sp):
@@ -879,7 +1006,8 @@ def h_kernels(run, mul_rate) -> dict:
     """Phase 4's H part: the process circuit's shape (2^18, B = 3) with
     the first process witness, then the tally circuit's (2^14) with a
     witness from a seed; each through `h_phase`, after the H kernels'
-    resources. Returns the process shape's rows and its stage input."""
+    resources; then a two-pass transform (`two_pass_transform`). Returns
+    the process shape's rows and its coset NTT tile's output."""
     from infimum_tpu_torch.groth16 import groth16 as g16
 
     h_resources()
@@ -898,11 +1026,13 @@ def h_kernels(run, mul_rate) -> dict:
                                                                 "cuda"))
         if label == "process":
             out = rows, tiled
+    two_pass_transform(mul_rate)
     return out
 
 
 def prove_launches(pk, cs, witness) -> dict:
-    """Every kernel's launches in one steady prove()."""
+    """Every kernel's launches in one steady prove(): the H stage's must be
+    its plan's (`h_launches`: no pointwise launch), the MSMs' all there."""
     from infimum_tpu_torch import kernels
     from infimum_tpu_torch.groth16 import groth16 as g16
 
@@ -910,11 +1040,20 @@ def prove_launches(pk, cs, witness) -> dict:
     g16.prove(pk, cs, witness, device="cuda")
     torch.cuda.synchronize()
     counts = {k: n for k, n in kernels.launch_counts().items() if n}
-    missing = [k for k in H_KERNELS if not counts.get(k)]
+    plan = h_launches(g16.sparse_rows(cs, "cuda"), g16._domain_size(cs),
+                      len(witness), False)
+    want = {k: sum(1 for name, *_ in plan if name == k) for k in H_KERNELS}
+    got = {k: counts.get(k, 0) for k in H_KERNELS}
+    if got != want or want["fr_pointwise"]:
+        raise AssertionError(f"a steady prove()'s H launches {got}, want "
+                             f"{want}")
+    missing = [k for k in ("msm_accum_g1", "msm_accum_g2", "msm_weighted_g1",
+                           "msm_weighted_g2") if not counts.get(k)]
     if missing:
         raise AssertionError(f"a steady prove() never launched {missing}")
     log(f"[prove] launches of one steady process prove(): "
-        f"{json.dumps(counts)}")
+        f"{json.dumps(counts)} (no fr_pointwise: the witness is not "
+        f"encoded)")
     return counts
 
 
@@ -1312,7 +1451,7 @@ def scale_poll(mul_rate) -> None:
     kernel_vs_plain(pk, cs, witness, mul_rate, tag="scale ")
 
 
-def zkey_phase(run, mul_rate, stage_input) -> None:
+def zkey_phase(run, mul_rate, pass_input) -> None:
     """Phase 9: the process circuit's zkey generated on the card, written
     to a file and read back (every field equal), two `prove_zkey` calls of
     the e2e's first process witness from the read zkey (the first encodes
@@ -1322,7 +1461,7 @@ def zkey_phase(run, mul_rate, stage_input) -> None:
     `prove()` and `prove_zkey` calls of that witness in turns, with their
     stage traces; then each MSM kernel held against its plain version at
     the zkey's `h` shape, and the H kernels at its odd coset (`h_phase`,
-    the stage launch in turns with phase 4's `stage_input`)."""
+    the pass launches in turns with phase 4's `pass_input`)."""
     import dataclasses
     import tempfile
 
@@ -1422,7 +1561,7 @@ def zkey_phase(run, mul_rate, stage_input) -> None:
     h_phase("zkey", Z.zkey_rows(back, "cuda"), witness, back.domain_size,
             mul_rate, lambda ww: Z.odd_coset_rows(back, ww, "cuda"),
             lambda w: Z.odd_coset_rows_plain(back, w, "cuda"), zkey=True,
-            stage_other=stage_input)
+            pass_other=pass_input)
 
 
 def parallel_phase(run) -> None:
@@ -1464,10 +1603,14 @@ def parallel_phase(run) -> None:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = kernels.launch_counts()
-            idle = [k for k, n in launches.items()
-                    if n == 0 and k.startswith(("msm_", "fr_"))]
-            if idle:
-                raise AssertionError(f"kernels idle in phase 10: {idle}")
+            # the e2e's keys: their row tables are encoded already, and a
+            # prove launches no pointwise step
+            idle = [k for k, n in launches.items() if n == 0 and k.startswith(
+                ("msm_", "fr_rows", "fr_ntt_"))]
+            if idle or launches["fr_pointwise"]:
+                raise AssertionError(f"kernels idle in phase 10: {idle}; "
+                                     f"pointwise launches "
+                                     f"{launches['fr_pointwise']}, want 0")
             if WP.FALLBACK_BATCHES != fell:
                 raise AssertionError(f"{WP.FALLBACK_BATCHES - fell} batches "
                                      f"fell back to the parent")
@@ -1884,7 +2027,7 @@ def main(argv: list[str]) -> int:
     first = run.first_process
     cmp = kernel_vs_plain(run.keys.process_pk, run.keys.process_circuit.cs,
                           first["witness"], mul_rate)
-    h_rows_report, stage_input = h_kernels(run, mul_rate)
+    h_rows_report, pass_input = h_kernels(run, mul_rate)
     cmp.update(h_rows_report)
     steady_prove(run.keys.process_pk, run.keys.process_circuit.cs,
                  first["witness"], first["publics"])
@@ -1935,7 +2078,7 @@ def main(argv: list[str]) -> int:
                              f"{foreign_modules()[:5]}")
 
     # 9. the zkey path; 10. the parallel witness
-    zkey_phase(run, mul_rate, stage_input)
+    zkey_phase(run, mul_rate, pass_input)
     parallel_phase(run)
 
     # 11. the multi-GPU slice; its ranks' launches join the report's

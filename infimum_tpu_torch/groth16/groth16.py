@@ -9,8 +9,9 @@ same randomness and the same proofs:
   - prove(): the witness converted once to words on `device`; row
     evaluation and the H pipeline (3 iNTT + 3 coset NTT, a.b - c and one
     coset iNTT, `ab_minus_c`) on those words, through the CUDA kernels of
-    csrc/fr_rows.cu and csrc/fr_ntt.cu on a card (26 launches at 2^18
-    with 2^11 tiles) and their plain versions on the CPU; the five MSMs
+    csrc/fr_rows.cu and csrc/fr_ntt.cu on a card (7 launches at 2^14 and
+    2^18: the rows, then a tile and a pass for each transform) and their
+    plain versions on the CPU; the five MSMs
     (a, b1, l, h over G1 and b2 over G2) dispatched before any host wait,
     through the CUDA MSM kernels on a card; the proof assembled on the
     host (`prove_queries`, which groth16/zkey.py's prove_zkey shares).
@@ -45,14 +46,13 @@ from ..msm.msm import (
     combine_window_points, encode_rows, msm_lanes, msm_rows_async,
 )
 from ..ntt.ntt import (
-    _root_of_unity, coset_intt_plain, coset_ntt_plain, coset_words, fr_const,
-    ntt_plain, ntt_words, pointwise, pointwise_plain,
+    PRODUCT, VALUE, _root_of_unity, coset_intt_plain, coset_ntt_plain,
+    coset_words, fr_const, ntt_plain, ntt_words, pointwise,
 )
 from ..utils.profiling import Stopwatch
 from .r1cs import LC, ConstraintSystem
 from .rowval import (
     SparseRows, flatten_rows, ints_to_words, rows_plain, rows_words,
-    to_mont_words,
 )
 
 P = FR_MOD
@@ -210,27 +210,31 @@ def sparse_rows(cs: ConstraintSystem, device) -> SparseRows:
     return cache[key]
 
 
-def ab_minus_c(abc: torch.Tensor, logm: int, g: int,
-               divide_z: bool) -> torch.Tensor:
+def ab_minus_c(abc: torch.Tensor, logm: int, g: int, divide_z: bool,
+               mode: int = VALUE) -> torch.Tensor:
     """(m, 8) standard-form words from (3, m, 8) Montgomery words of a, b,
-    c on the domain: one batched iNTT, one coset NTT with generator `g`
-    (the coset powers its input table), then a.b - c on that coset; with
-    `divide_z`, divided by Z there and taken back to coefficients by a
-    coset iNTT (h's coefficients) that gathers a.b - c itself (the tile's
-    product mode) and whose output multiplies fold 1/n, 1/Z, the exit
-    from Montgomery form and the inverse coset powers. On a card each
-    step is a kernel (ntt/ntt.py): with `divide_z` and logm >= TILE_LOG,
-    3 (logm - TILE_LOG + 1) launches."""
+    c on the domain, or, with `mode` AB, from (2, m, 8) words of a, b
+    where the caller knows c = a.b (the zkey's satisfied R1CS: the first
+    tile gathers a.b itself): one batched iNTT,
+    one coset NTT with generator `g` (the coset powers its input table),
+    then a.b - c on that coset; with `divide_z`, divided by Z there and
+    taken back to coefficients by a coset iNTT (h's coefficients) that
+    gathers a.b - c itself (the tile's PRODUCT mode) and whose output
+    multiplies fold 1/n, 1/Z, the exit from Montgomery form and the
+    inverse coset powers. On a card each step is a kernel (ntt/ntt.py): a
+    tile and `pass_plan(logm)`'s passes a transform, and without
+    `divide_z` one pointwise launch."""
     dev = device_key(abc.device)
     m = 1 << logm
-    ev = ntt_words(ntt_words(abc, logm, True, post_c=fr_const(fr_inv(m), dev)),
+    ev = ntt_words(ntt_words(abc, logm, True, post_c=fr_const(fr_inv(m), dev),
+                             mode=mode),
                    logm, pre=coset_words(logm, g, False, dev))
     if not divide_z:
         return pointwise(ev[0], ev[1], ev[2], k=fr_const(1, dev, mont=False))
     z_inv = fr_inv((pow(g, m, P) - 1) % P)
     return ntt_words(ev, logm, True,
                      post_c=fr_const(z_inv * fr_inv(m), dev, mont=False),
-                     post_t=coset_words(logm, g, True, dev), product=True)
+                     post_t=coset_words(logm, g, True, dev), mode=PRODUCT)
 
 
 def ab_minus_c_plain(abc: torch.Tensor, logm: int, g: int,
@@ -255,20 +259,18 @@ def h_rows(cs: ConstraintSystem, witness, device) -> torch.Tensor:
     m = _domain_size(cs)
     if not isinstance(witness, torch.Tensor):
         witness = ints_to_words(witness, device)
-    abc = rows_words(sparse_rows(cs, device), to_mont_words(witness), m)
+    abc = rows_words(sparse_rows(cs, device), witness, m)
     return words_to_limbs(ab_minus_c(abc, m.bit_length() - 1, COSET_GEN,
                                      divide_z=True))
 
 
 def h_rows_plain(cs: ConstraintSystem, witness: list[int],
                  device) -> torch.Tensor:
-    """Plain version of `h_rows` on any device: the witness encoded by
-    plain products, the plain row walk over the same rows and
-    `ab_minus_c_plain`."""
+    """Plain version of `h_rows` on any device: the plain row walk over
+    the same rows and the standard-form witness, and `ab_minus_c_plain`."""
     m = _domain_size(cs)
-    w_mont = pointwise_plain(ints_to_words(witness, device), k=fr_const(
-        FR_CTX.R2, device_key(device), mont=False))
-    abc = words_to_limbs(rows_plain(sparse_rows(cs, device), w_mont, m))
+    abc = words_to_limbs(rows_plain(sparse_rows(cs, device),
+                                    ints_to_words(witness, device), m))
     return ab_minus_c_plain(abc, m.bit_length() - 1, COSET_GEN,
                             divide_z=True)
 

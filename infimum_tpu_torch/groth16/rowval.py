@@ -6,11 +6,13 @@ sparse matrix-vector product per matrix.
 
 `SparseRows` keeps, on its device, compressed rows of every matrix in
 turn: a row pointer (nmat x num_rows + 1 int32), the terms' columns
-(int32) and coefficients (8 int32 words each, Montgomery form), sorted by
+(int32) and coefficients (8 int32 words each, c R^2 mod r), sorted by
 matrix and row (a zkey's triples come in any order; repeats stay separate
 terms, summed like any other); and, on the host, the coefficients in
-standard form. `rows_words` evaluates them against a Montgomery witness
-in words:
+standard form. `rows_words` evaluates them against the witness's
+standard-form words: mont_mul(c R^2, w) = c w R, the same reduced
+Montgomery value as mont_mul(c R, w R), so no launch encodes the witness
+a prove:
 
   - on a card, `csrc/fr_rows.cu`: a merge-path walk over the terms and
     row ends of every output row, each thread a fixed slice of
@@ -18,13 +20,14 @@ in words:
     the slices once per domain, on the host, and keeps them on the
     rows' device), each row summed in Fr adds;
   - on the CPU, `rows_plain`: per term mont_mul(coeff, w[col]) of the
-    standard-form coefficient, in chunks of terms (the process circuit
-    has about 3.9M), `index_add_` by row (the values are linear, so limb
-    sums accumulate exactly in int64), then one carry pass, a fold of the
-    carry-out, conditional subtractions and one product by R^2: reduced
+    standard-form coefficient and witness value (c w R^-1), in chunks of
+    terms (the process circuit has about 3.9M), `index_add_` by row (the
+    values are linear, so limb sums accumulate exactly in int64), then
+    one carry pass, a fold of the carry-out, conditional subtractions and
+    one product by R^3 (the R^-1 and the encoding's R back): reduced
     Montgomery rows, the NTT's input encoding. It reads the standard-form
-    coefficients, not the Montgomery table the card's encoding wrote, so
-    a fault in that encoding shows as a difference.
+    coefficients, not the R^2 table the card's encoding wrote, so a fault
+    in that encoding shows as a difference.
 
 Both give each row's reduced value, so the two agree limb for limb.
 """
@@ -62,12 +65,12 @@ def ints_to_words(xs, device) -> torch.Tensor:
         (0, WORDS), dtype=torch.int32, device=device)
 
 
-def to_mont_words(std: torch.Tensor) -> torch.Tensor:
-    """Standard-form words -> Montgomery form (x R^2 mod r, Montgomery
-    product): one pointwise launch on a card, its plain version on the
-    CPU."""
-    return pointwise(std, k=fr_const(FR_CTX.R2, device_key(std.device),
-                                     mont=False))
+def to_r2_words(std: torch.Tensor) -> torch.Tensor:
+    """Standard-form words c -> c R^2 mod r, the row table's form: one
+    pointwise launch, a Montgomery product by R^3 mod r, on a card; its
+    plain version on the CPU."""
+    return pointwise(std, k=fr_const(FR_CTX.R2 * FR_CTX.R,
+                                     device_key(std.device), mont=False))
 
 
 def flatten_rows(rows) -> dict:
@@ -148,10 +151,11 @@ class RowPartition:
 
 
 class SparseRows:
-    """Compressed rows of sparse matrices on one device, coefficients in
-    Montgomery form. `mats` maps each matrix's name to its (coeffs, cols,
-    rows) lists: `flatten_rows` of an R1CS, or a snarkjs .zkey's A and B
-    triples (any order, repeats summed). Each matrix has `num_rows` rows;
+    """Compressed rows of sparse matrices on one device, each coefficient
+    c as c R^2 mod r (encoded once, when the rows are built). `mats` maps
+    each matrix's name to its (coeffs, cols, rows) lists: `flatten_rows`
+    of an R1CS, or a snarkjs .zkey's A and B triples (any order, repeats
+    summed). Each matrix has `num_rows` rows;
     a row of 2^16 terms or more is refused, as the reference refuses it
     (its limb sums would overflow)."""
 
@@ -186,7 +190,7 @@ class SparseRows:
         self.coeffs_std = ints_to_words(
             np.concatenate(coeffs or [[]]).tolist(), "cpu")
         self.coeffs = torch.cat([
-            to_mont_words(self.coeffs_std[i:i + TERM_CHUNK].to(device))
+            to_r2_words(self.coeffs_std[i:i + TERM_CHUNK].to(device))
             for i in range(0, self.nnz, TERM_CHUNK)]) if self.nnz else \
             self.coeffs_std.to(device)
 
@@ -226,45 +230,47 @@ def _reduce_rows(sums: torch.Tensor) -> torch.Tensor:
     return FR_CTX.add(limbs.T, fold)
 
 
-def rows_plain(sp: SparseRows, w_mont: torch.Tensor, m: int) -> torch.Tensor:
-    """Plain version of the row launch, on the same rows and the standard-
-    form coefficients: (nmat, m, 8) reduced Montgomery words, rows
-    num_rows..m-1 zero."""
-    dev, nr = w_mont.device, max(sp.num_rows, 1)
+def rows_plain(sp: SparseRows, w_std: torch.Tensor, m: int) -> torch.Tensor:
+    """Plain version of the row launch, on the same rows, the standard-
+    form coefficients and the standard-form witness words: (nmat, m, 8)
+    reduced Montgomery words, rows num_rows..m-1 zero."""
+    dev, nr = w_std.device, max(sp.num_rows, 1)
     rid = torch.repeat_interleave(
         torch.arange(sp.nmat * sp.num_rows, device=dev),
         (sp.rowptr[1:] - sp.rowptr[:-1]).to(torch.int64))
     out_row = rid // nr * m + rid % nr
     cols = sp.cols.to(torch.int64)
-    w = words_to_limbs(w_mont)
+    w = words_to_limbs(w_std)
     sums = torch.zeros((sp.nmat * m, NLIMBS), dtype=torch.int64, device=dev)
     for i in range(0, rid.shape[0], TERM_CHUNK):
         j = i + TERM_CHUNK
         sums.index_add_(0, out_row[i:j], FR_CTX.mont_mul(
             words_to_limbs(sp.coeffs_std[i:j].to(dev)), w[cols[i:j]]))
-    return limbs_to_words(FR_CTX.to_mont(_reduce_rows(sums))).reshape(
+    r3 = words_to_limbs(fr_const(FR_CTX.R2 * FR_CTX.R, device_key(dev),
+                                 mont=False))
+    return limbs_to_words(FR_CTX.mont_mul(_reduce_rows(sums), r3)).reshape(
         sp.nmat, m, WORDS)
 
 
-def rows_words(sp: SparseRows, w_mont: torch.Tensor, m: int) -> torch.Tensor:
+def rows_words(sp: SparseRows, w_std: torch.Tensor, m: int) -> torch.Tensor:
     """(nmat, m, 8) reduced Montgomery words of every matrix of `sp`
-    against the Montgomery witness words `w_mont`: the row launch on a
-    card, `rows_plain` on the CPU."""
+    against the witness's standard-form words `w_std`: the row launch on
+    a card, `rows_plain` on the CPU."""
     if m < sp.num_rows:
         raise ValueError(f"domain {m} below {sp.num_rows} rows")
-    if sp.max_col >= w_mont.shape[0]:
+    if sp.max_col >= w_std.shape[0]:
         raise ValueError(f"column {sp.max_col} outside a witness of "
-                         f"{w_mont.shape[0]}")
-    if not _on_cuda(w_mont, sp.rowptr):
-        return rows_plain(sp, w_mont, m)
-    _words_check("w_mont", w_mont)
+                         f"{w_std.shape[0]}")
+    if not _on_cuda(w_std, sp.rowptr):
+        return rows_plain(sp, w_std, m)
+    _words_check("w_std", w_std)
     part = sp.partition(m)
     out = torch.empty((sp.nmat, m, WORDS), dtype=torch.int32,
-                      device=w_mont.device)
+                      device=w_std.device)
     carry = torch.empty((part.nwarps, WORDS), dtype=torch.int32,
-                        device=w_mont.device)
+                        device=w_std.device)
     kernels.KERNELS["fr_rows"](part.ends, part.slices, part.cross, sp.cols,
-                               sp.coeffs, w_mont, carry, out, part.nwarps,
+                               sp.coeffs, w_std, carry, out, part.nwarps,
                                part.ncross)
     return out
 

@@ -5,13 +5,13 @@ randomness and the same proofs. A coordinator that holds a ceremony zkey
 (`snarkjs groth16 setup`) proves against the verifying key deployed from
 it; `generate_zkey` lays a single-party setup out in the same format.
 
-prove_zkey, on `device` (on a card each step a CUDA kernel, 22 launches
+prove_zkey, on `device` (on a card each step a CUDA kernel, 6 launches
 at 2^18; on the CPU their plain versions):
   1. a|_H, b|_H from the zkey's A/B coefficient triples x witness, one
      row launch over both matrices' compressed rows (groth16/rowval.py,
-     built once per zkey and device); c|_H = a|_H . b|_H pointwise: the
-     zkey holds no C matrix, and a satisfied R1CS makes the product exact
-     on the domain.
+     built once per zkey and device); c|_H = a|_H . b|_H, which the iNTT's
+     tile gathers itself (AB mode): the zkey holds no C matrix, and a
+     satisfied R1CS makes the product exact on the domain.
   2. P = a.b - c on the odd coset {eta w^i}, eta = w_2m: one batched iNTT
      of the three, one coset NTT with generator eta, the pointwise step
      (groth16.ab_minus_c, as prove()'s H pipeline but without its tail).
@@ -36,15 +36,13 @@ from ..ff.bn254 import FR_MOD, fr_inv
 from ..ff.fp import FR_CTX, device_key, words_to_limbs
 from ..io.snarkjs import ZkeyData
 from ..msm.fixed_base import fixed_base_mul_batch
-from ..ntt.ntt import _root_of_unity, fr_const, pointwise, pointwise_plain
+from ..ntt.ntt import AB, _root_of_unity
 from .groth16 import (
     Proof, VerifyingKey, ab_minus_c, ab_minus_c_plain, lagrange_at,
     prove_queries, qap_polys_at_tau,
 )
 from .r1cs import ConstraintSystem
-from .rowval import (
-    SparseRows, ints_to_words, rows_plain, rows_words, to_mont_words,
-)
+from .rowval import SparseRows, ints_to_words, rows_plain, rows_words
 
 P = FR_MOD
 
@@ -136,26 +134,24 @@ def odd_coset_rows(zk: ZkeyData, witness, device) -> torch.Tensor:
     """(m, 16) standard-form limbs of P = a.b - c on the odd coset
     {eta w^i} on `device`: the h-MSM's scalars against the zkey's H
     points. `witness` is a list of ints or its standard-form words on
-    `device` (`rowval.ints_to_words`). On a card: the row launch, one
-    pointwise launch for c, then `ab_minus_c`'s kernels."""
+    `device` (`rowval.ints_to_words`). On a card: the row launch, then
+    `ab_minus_c`'s kernels, whose first tile gathers c = a.b."""
     logm = _zkey_logm(zk)
     if not isinstance(witness, torch.Tensor):
         witness = ints_to_words(witness, device)
-    ab = rows_words(zkey_rows(zk, device), to_mont_words(witness), 1 << logm)
-    abc = torch.cat([ab, pointwise(ab[0], ab[1]).unsqueeze(0)])
-    return words_to_limbs(ab_minus_c(abc, logm, _root_of_unity(2 << logm),
-                                     divide_z=False))
+    ab = rows_words(zkey_rows(zk, device), witness, 1 << logm)
+    return words_to_limbs(ab_minus_c(ab, logm, _root_of_unity(2 << logm),
+                                     divide_z=False, mode=AB))
 
 
 def odd_coset_rows_plain(zk: ZkeyData, witness: list[int],
                          device) -> torch.Tensor:
-    """Plain version of `odd_coset_rows` on any device: the witness
-    encoded by plain products, the plain row walk over the same rows,
-    c = a.b and `ab_minus_c_plain`."""
+    """Plain version of `odd_coset_rows` on any device: the plain row
+    walk over the same rows and the standard-form witness, c = a.b and
+    `ab_minus_c_plain`."""
     logm = _zkey_logm(zk)
-    w_mont = pointwise_plain(ints_to_words(witness, device), k=fr_const(
-        FR_CTX.R2, device_key(device), mont=False))
-    a, b = words_to_limbs(rows_plain(zkey_rows(zk, device), w_mont,
+    a, b = words_to_limbs(rows_plain(zkey_rows(zk, device),
+                                     ints_to_words(witness, device),
                                      1 << logm))
     abc = torch.stack([a, b, FR_CTX.mont_mul(a, b)])
     return ab_minus_c_plain(abc, logm, _root_of_unity(2 << logm),

@@ -15,7 +15,7 @@ card the calling thread had current.
 `Kernel.launches` counts the launches of one kernel instance (an MSM
 kernel for one curve, the Poseidon permutation for every width, its
 measured variants apart; the H pipeline's row evaluation, NTT tile and
-stage passes and pointwise step), so a run can show that its main path went
+pass launches and pointwise step), so a run can show that its main path went
 through the kernel. Nothing here is
 imported or built unless a CUDA tensor reaches a kernel wrapper.
 """
@@ -78,7 +78,7 @@ KERNELS = {
     "poseidon_perm_variant": Kernel("inf_poseidon_perm_variant", 6, 4),
     "fr_rows": Kernel("inf_fr_rows", 8, 2),
     "fr_ntt_tile": Kernel("inf_fr_ntt_tile", 6, 4),
-    "fr_ntt_stage": Kernel("inf_fr_ntt_stage", 4, 3),
+    "fr_ntt_pass": Kernel("inf_fr_ntt_pass", 4, 4),
     "fr_pointwise": Kernel("inf_fr_pointwise", 5, 1),
 }
 

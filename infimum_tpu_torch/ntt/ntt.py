@@ -9,14 +9,16 @@ transforms through every stage together.
 Two layers:
   - words (`ntt_words`, `pointwise`): (..., n, 8) int32 words of
     Montgomery values, the layout of `csrc/fr_ntt.cu`. On a CUDA tensor
-    `ntt_words` is one tile launch (the bit-reversal gather, in product
-    mode of a.b - c from three inputs, an optional input table, stages
-    1..TILE_LOG) and one stage launch for each remaining stage, the
-    output multiplies fused into the last launch; `pointwise` is one
-    launch. On a CPU tensor each launch is replaced by
-    its plain version (`ntt_tile_plain`, `ntt_stage_plain`,
-    `pointwise_plain`), which compute the same values with `ff/fp.py`'s
-    limb arithmetic; any other device is refused.
+    `ntt_words` is one tile launch (the bit-reversal gather, by gather
+    mode of one input, of a.b - c from three inputs (PRODUCT) or of a, b
+    and a.b from two (AB), an optional input table, stages 1..TILE_LOG)
+    and one pass launch for each range of `pass_plan(logn)` (up to
+    PASS_LOG stages each: one pass for 2^12-2^18), the output multiplies
+    fused into the last launch; `pointwise` is one launch. On a CPU
+    tensor each launch is replaced by its plain version
+    (`ntt_tile_plain`, `ntt_pass_plain`, `pointwise_plain`), which
+    compute the same values with `ff/fp.py`'s limb arithmetic; any other
+    device is refused.
   - limbs (`ntt`, `intt`, `coset_ntt`, `coset_intt`): (..., n, 16) int64
     Montgomery limbs, the signature `parallel/ntt.py` and the tests use.
     On every device they convert to words and back around `ntt_words`.
@@ -46,6 +48,10 @@ from ..ff.fp import (
 )
 
 TILE_LOG = 11   # csrc/fr_ntt.cu kTileLog: stages of the tile launch
+PASS_LOG = 7    # csrc/fr_ntt.cu kPassLog: the most stages of a pass launch
+# the tile launch's gather modes (csrc/fr_ntt.cu kGather*): one input a
+# transform; a.b - c of three; a, b and a.b from two (three out)
+VALUE, PRODUCT, AB = 0, 1, 2
 WORDS = NLIMBS // 2
 
 
@@ -148,6 +154,22 @@ def _on_cuda(*ts) -> bool:
     raise ValueError(f"no Fr kernel for devices {sorted(kinds)}")
 
 
+def pass_plan(logn: int) -> list[tuple[int, int]]:
+    """The stage ranges (s0, s1) of the pass launches that follow the tile
+    of a transform of 2^logn: ceil((logn - TILE_LOG) / PASS_LOG) of them,
+    the stages split as evenly as they go, the larger ranges first."""
+    left = logn - TILE_LOG
+    if left <= 0:
+        return []
+    k = -(-left // PASS_LOG)
+    out, s0 = [], TILE_LOG + 1
+    for i in range(k):
+        n = left // k + (i < left % k)
+        out.append((s0, s0 + n - 1))
+        s0 += n
+    return out
+
+
 # -- plain versions (limbs inside, words outside) -----------------------------------
 
 def _butterflies(a: torch.Tensor, s0: int, s1: int,
@@ -173,16 +195,26 @@ def _post_plain(a, post_c, post_t):
     return a
 
 
+def _gathered(a: torch.Tensor, mode: int) -> torch.Tensor:
+    """The tile's inputs in limbs by gather mode: a as it is; a.b - c of
+    (..., 3, n, 16); a, b, a.b of (..., 2, n, 16)."""
+    if mode == PRODUCT:
+        return FR_CTX.sub(FR_CTX.mont_mul(a[..., 0, :, :], a[..., 1, :, :]),
+                          a[..., 2, :, :])
+    if mode == AB:
+        return torch.stack([a[..., 0, :, :], a[..., 1, :, :], FR_CTX.mont_mul(
+            a[..., 0, :, :], a[..., 1, :, :])], -3)
+    return a
+
+
 def ntt_tile_plain(x, logn, tw, pre=None, post_c=None, post_t=None,
-                   product=False):
-    """Plain version of the tile launch over (..., n, 8) words: x (in
-    `product` mode a.b - c of x's (..., 3, n, 8) words) times `pre`
-    (natural index), bit-reversed, stages 1..min(logn, TILE_LOG); when
-    that is every stage, times `post_c` and `post_t`."""
-    a = words_to_limbs(x)
-    if product:
-        a = FR_CTX.sub(FR_CTX.mont_mul(a[..., 0, :, :], a[..., 1, :, :]),
-                       a[..., 2, :, :])
+                   mode=VALUE):
+    """Plain version of the tile launch over (..., n, 8) words: x (by
+    `mode`: a.b - c of x's (..., 3, n, 8) words, or a, b and a.b of its
+    (..., 2, n, 8) words) times `pre` (natural index), bit-reversed,
+    stages 1..min(logn, TILE_LOG); when that is every stage, times
+    `post_c` and `post_t`."""
+    a = _gathered(words_to_limbs(x), mode)
     if pre is not None:
         a = FR_CTX.mont_mul(a, words_to_limbs(pre))
     a = a[..., torch.from_numpy(_bitrev(logn)).to(a.device), :]
@@ -193,10 +225,10 @@ def ntt_tile_plain(x, logn, tw, pre=None, post_c=None, post_t=None,
     return limbs_to_words(a)
 
 
-def ntt_stage_plain(x, logn, s, tw, post_c=None, post_t=None):
-    """Plain version of a stage launch: stage s of (..., n, 8) words, then
-    times `post_c` and `post_t` where given."""
-    a = _butterflies(words_to_limbs(x), s, s, words_to_limbs(tw))
+def ntt_pass_plain(x, logn, s0, s1, tw, post_c=None, post_t=None):
+    """Plain version of a pass launch: stages s0..s1 of (..., n, 8) words,
+    then times `post_c` and `post_t` where given."""
+    a = _butterflies(words_to_limbs(x), s0, s1, words_to_limbs(tw))
     return limbs_to_words(_post_plain(a, post_c, post_t))
 
 
@@ -215,12 +247,12 @@ def pointwise_plain(a, b=None, c=None, k=None):
 
 # -- kernel wrappers ------------------------------------------------------------------
 
-def ntt_tile(x, logn, tw, pre=None, post_c=None, post_t=None,
-             product=False):
-    """The tile launch on a card (a new (..., n, 8) tensor; in `product`
-    mode x is (..., 3, n, 8)), its plain version on the CPU."""
+def ntt_tile(x, logn, tw, pre=None, post_c=None, post_t=None, mode=VALUE):
+    """The tile launch on a card (a new tensor: (..., n, 8) from x's
+    (..., n, 8), or in PRODUCT mode (..., 3, n, 8); (..., 3, n, 8) from
+    x's (..., 2, n, 8) in AB mode), its plain version on the CPU."""
     if not _on_cuda(x, tw, pre, post_c, post_t):
-        return ntt_tile_plain(x, logn, tw, pre, post_c, post_t, product)
+        return ntt_tile_plain(x, logn, tw, pre, post_c, post_t, mode)
     n = 1 << logn
     _words_check("x", x)
     _words_check("tw", tw, (n - 1, WORDS))
@@ -229,22 +261,25 @@ def ntt_tile(x, logn, tw, pre=None, post_c=None, post_t=None,
                            ("post_t", post_t, (n, WORDS))):
         if t is not None:
             _words_check(name, t, shape)
-    if x.shape[-2] != n or (product and (x.dim() < 3 or x.shape[-3] != 3)):
-        raise ValueError(f"x: want (..., {'3, ' if product else ''}{n}, "
+    ins = {VALUE: 0, PRODUCT: 3, AB: 2}[mode]   # inputs a transform
+    if x.shape[-2] != n or (ins and (x.dim() < 3 or x.shape[-3] != ins)):
+        raise ValueError(f"x: want (..., {f'{ins}, ' if ins else ''}{n}, "
                          f"{WORDS}), got {tuple(x.shape)}")
-    out = torch.empty(x.shape[:-3] + x.shape[-2:] if product else x.shape,
+    lead = x.shape[:-3] if ins else x.shape[:-2]
+    out = torch.empty(lead + ((3,) if mode == AB else ()) + x.shape[-2:],
                       dtype=x.dtype, device=x.device)
     kernels.KERNELS["fr_ntt_tile"](x, out, tw, pre, post_c, post_t,
                                    out.numel() // (n * WORDS), logn,
-                                   min(logn, TILE_LOG), int(product))
+                                   min(logn, TILE_LOG), mode)
     return out
 
 
-def ntt_stage(x, logn, s, tw, post_c=None, post_t=None):
-    """Stage s (> TILE_LOG) on a card, in place on x (returned); its plain
-    version on the CPU (a new tensor)."""
+def ntt_pass(x, logn, s0, s1, tw, post_c=None, post_t=None):
+    """Stages s0..s1 (TILE_LOG < s0 <= s1 <= logn, at most PASS_LOG of
+    them) on a card, in place on x (returned); its plain version on the
+    CPU (a new tensor)."""
     if not _on_cuda(x, tw, post_c, post_t):
-        return ntt_stage_plain(x, logn, s, tw, post_c, post_t)
+        return ntt_pass_plain(x, logn, s0, s1, tw, post_c, post_t)
     n = 1 << logn
     _words_check("x", x)
     _words_check("tw", tw, (n - 1, WORDS))
@@ -252,10 +287,12 @@ def ntt_stage(x, logn, s, tw, post_c=None, post_t=None):
                            ("post_t", post_t, (n, WORDS))):
         if t is not None:
             _words_check(name, t, shape)
-    if x.shape[-2] != n or not TILE_LOG < s <= logn:
-        raise ValueError(f"stage {s} of 2^{logn} on {tuple(x.shape)}")
-    kernels.KERNELS["fr_ntt_stage"](x, tw, post_c, post_t,
-                                    x.numel() // (n * WORDS), logn, s)
+    if x.shape[-2] != n or not TILE_LOG < s0 <= s1 <= logn or \
+            s1 - s0 >= PASS_LOG:
+        raise ValueError(f"stages {s0}..{s1} of 2^{logn} on "
+                         f"{tuple(x.shape)}")
+    kernels.KERNELS["fr_ntt_pass"](x, tw, post_c, post_t,
+                                   x.numel() // (n * WORDS), logn, s0, s1)
     return x
 
 
@@ -277,24 +314,25 @@ def pointwise(a, b=None, c=None, k=None):
 
 
 def ntt_words(x, logn: int, invert: bool = False, pre=None, post_c=None,
-              post_t=None, product=False):
+              post_t=None, mode=VALUE):
     """Transform of length 2^logn over dim -2 of (..., n, 8) words, in
     Montgomery form: out[i] = sum_j (x_j pre_j) w^(ij), w^-1 with `invert`,
-    then times `post_c` and `post_t[i]` (None: no factor); in `product`
-    mode x is (..., 3, n, 8) words a, b, c and x_j = a_j b_j - c_j. The
-    inverse's 1/n is the caller's to pass in `post_c`. One tile launch and
-    one for each stage above TILE_LOG on a card."""
+    then times `post_c` and `post_t[i]` (None: no factor); in PRODUCT mode
+    x is (..., 3, n, 8) words a, b, c and x_j = a_j b_j - c_j; in AB mode
+    x is (..., 2, n, 8) words a, b and the output (..., 3, n, 8) the
+    transforms of a, b and a.b. The inverse's 1/n is the caller's to pass
+    in `post_c`. One tile launch and one for each range of
+    `pass_plan(logn)` on a card."""
     dev = device_key(x.device)
     tw, _ = word_tables(logn, invert, dev)
     x = x.contiguous()
-    tlog = min(logn, TILE_LOG)
     post = (post_c, post_t)
-    out = ntt_tile(x, logn, tw, pre, *(post if tlog == logn else (None,
-                                                                    None)),
-                   product=product)
-    for s in range(tlog + 1, logn + 1):
-        out = ntt_stage(out, logn, s, tw,
-                        *(post if s == logn else (None, None)))
+    plan = pass_plan(logn)
+    out = ntt_tile(x, logn, tw, pre, *(post if not plan else (None, None)),
+                   mode=mode)
+    for s0, s1 in plan:
+        out = ntt_pass(out, logn, s0, s1, tw,
+                       *(post if s1 == logn else (None, None)))
     return out
 
 

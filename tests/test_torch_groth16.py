@@ -25,7 +25,7 @@ from infimum_tpu_torch.ff.fp import words_to_limbs
 from infimum_tpu_torch.groth16 import groth16 as port
 from infimum_tpu_torch.groth16.keys import from_reference, load_npz
 from infimum_tpu_torch.groth16.rowval import (
-    ints_to_words, rows_words, to_mont_words,
+    ints_to_words, rows_words,
 )
 
 from test_groth16 import _cubic_circuit, _toy_circuit
@@ -115,7 +115,7 @@ def test_rows_and_h_match_reference(case):
     rows = ref._qap_rows(cs)
     want = eval_rows_device(RefRows(rows, len(rows)), w, m)
     got = words_to_limbs(rows_words(port.sparse_rows(cs, "cpu"),
-                                    to_mont_words(ints_to_words(w, "cpu")), m))
+                                    ints_to_words(w, "cpu"), m))
     for g, r in zip(got, want):
         assert np.array_equal(g.numpy(), np.asarray(r).astype(np.int64))
     assert port.compute_h(cs, w, "cpu") == ref.compute_h_host(cs, w)

@@ -2,8 +2,9 @@
 their wrappers and plain versions, against the JAX package.
 
 On the CPU each wrapper runs its kernel's plain version, so these tests
-hold the word-level pipeline the card runs (compressed rows, the tile and
-stage passes with their fused table multiplies, the pointwise step, the
+hold the word-level pipeline the card runs (compressed rows with their
+R^2 coefficient table, the tile with its gather modes and the pass
+launches with their fused table multiplies, the pointwise step, the
 witness converted once) against the reference's XLA programs: `_rows_fn`
 (`eval_rows_device`), `_h_graph` (reached by `compute_h` below 2^13 rows),
 the transforms of `infimum_tpu/ntt/ntt.py` and the zkey's odd-coset
@@ -45,7 +46,8 @@ torch.set_num_threads(1)  # the suite runs in parallel worker processes
 
 P = FR_MOD
 COSET_GEN = 5
-NEW_KERNELS = ("fr_rows", "fr_ntt_tile", "fr_ntt_stage", "fr_pointwise")
+NEW_KERNELS = ("fr_rows", "fr_ntt_tile", "fr_ntt_pass", "fr_pointwise")
+CSRC = pathlib.Path(N.__file__).parents[1] / "csrc"
 
 
 def _full_width(seed, n):
@@ -120,14 +122,15 @@ def test_compressed_rows_match_reference(name):
     assert sp.names == ("A", "B", "C") and sp.num_rows == len(rows)
     rowptr = sp.rowptr.tolist()
     assert rowptr[0] == 0 and rowptr == sorted(rowptr)
-    coeffs = FR_CTX.decode(words_to_limbs(sp.coeffs))
+    # the table holds c R^2 mod r: decoded (x R^-1) c R
+    coeffs = [v * FR_CTX.r_inv % P
+              for v in FR_CTX.decode(words_to_limbs(sp.coeffs))]
     for k in range(3):
         for j, triple in enumerate(rows):
             lo, hi = rowptr[k * len(rows) + j], rowptr[k * len(rows) + j + 1]
             got = sorted(zip(sp.cols[lo:hi].tolist(), coeffs[lo:hi]))
             assert got == sorted((c, v % P) for c, v in triple[k].terms.items())
-    w_mont = rowval.to_mont_words(rowval.ints_to_words(w, "cpu"))
-    got = rowval.rows_plain(sp, w_mont, m)
+    got = rowval.rows_plain(sp, rowval.ints_to_words(w, "cpu"), m)
     want = eval_rows_device(RefRows(rows, len(rows)), w, m)
     for g, r in zip(got, want):
         assert torch.equal(g, _words_of(r))
@@ -148,8 +151,7 @@ def test_zkey_triples_shuffled_with_repeats_match_reference():
     assert sp.nnz == len(triples)
     assert sp.longest == int(np.bincount(
         [2 * r + a for a, r, _, _ in triples]).max())
-    w_mont = rowval.to_mont_words(rowval.ints_to_words(w, "cpu"))
-    got = rowval.rows_words(sp, w_mont, m)
+    got = rowval.rows_words(sp, rowval.ints_to_words(w, "cpu"), m)
     want = ref_zkey._ab_rows_device(
         types.SimpleNamespace(coeffs=triples, domain_size=m), w)
     for g, r in zip(got, want):
@@ -160,6 +162,39 @@ def test_zkey_triples_shuffled_with_repeats_match_reference():
             if mat == k:
                 rows[row] = (rows[row] + val * w[sig]) % P
         assert FR_CTX.decode(words_to_limbs(got[k])) == rows
+
+
+@pytest.mark.parametrize("name", ["cubic", "chain200", "long_row",
+                                  "zkey_empty_padding"])
+def test_r2_coefficient_table_equals_montgomery_route(name):
+    """The row table's c R^2 mod r against the witness's standard-form
+    words gives, term by term, the products of the old route (the witness
+    and the table each encoded x R, a product by R^2): mont_mul(c R^2, w) =
+    mont_mul(c R, w R) = c w R. Summed by row as the row kernel sums them,
+    they equal `rows_words` from the standard-form words."""
+    if name in KINDS:
+        mats, num_rows, m, nv, _ = _matrices(name)
+        sp = rowval.SparseRows(mats, num_rows, "cpu")
+        w = _full_width(78, nv)
+    else:
+        cs, w = _circuit(name)
+        m = port._domain_size(cs)
+        sp = port.sparse_rows(cs, "cpu")
+    w_std = rowval.ints_to_words(w, "cpu")
+    cols = sp.cols.long()
+    card = FR_CTX.mont_mul(words_to_limbs(sp.coeffs),
+                           words_to_limbs(w_std)[cols])
+    r2 = N.fr_const(FR_CTX.R2, "cpu", mont=False)
+    old = FR_CTX.mont_mul(words_to_limbs(N.pointwise_plain(sp.coeffs_std,
+                                                           k=r2)),
+                          words_to_limbs(N.pointwise_plain(w_std, k=r2))[cols])
+    assert torch.equal(card, old)
+    vals, rowptr, nr = tensor_to_ints(card), sp.rowptr.tolist(), sp.num_rows
+    sums = [0] * (sp.nmat * m)
+    for g in range(sp.nmat * nr):
+        sums[g // nr * m + g % nr] = sum(vals[rowptr[g]:rowptr[g + 1]]) % P
+    got = rowval.rows_words(sp, w_std, m)
+    assert tensor_to_ints(words_to_limbs(got)) == sums
 
 
 def test_row_of_2_16_terms_refused_like_reference():
@@ -200,17 +235,80 @@ def test_word_tables_match_plain_and_reference(logn):
             ref_ntt._coset_consts(logn, COSET_GEN, invert)))
 
 
+def _source_const(name: str) -> int:
+    src = (CSRC / "fr_ntt.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
 def test_tile_log_matches_kernel_source():
-    src = (pathlib.Path(N.__file__).parents[1] / "csrc" / "fr_ntt.cu") \
-        .read_text()
-    assert int(re.search(r"constexpr int kTileLog = (\d+);", src).group(1)) \
-        == N.TILE_LOG
+    assert _source_const("kTileLog") == N.TILE_LOG
 
 
-@pytest.mark.parametrize("logn", [1, 4, 10, 11, 12])
+def test_pass_plan_matches_kernel_source():
+    """PASS_LOG and the gather modes equal the source's; for every logn
+    1-28 (the kernels' limit) the passes cover the stages above the tile
+    once, in order, in ceil((logn - kTileLog) / kPassLog) launches of at
+    most kPassLog stages, as the C entry takes them."""
+    tile, most = _source_const("kTileLog"), _source_const("kPassLog")
+    assert most == N.PASS_LOG
+    src = (CSRC / "fr_ntt.cu").read_text()
+    assert re.search(r"kGatherValue = (\d+), kGatherProduct = (\d+), "
+                     r"kGatherAB = (\d+);", src).groups() == tuple(
+        str(k) for k in (N.VALUE, N.PRODUCT, N.AB))
+    for logn in range(1, 29):
+        plan = N.pass_plan(logn)
+        assert len(plan) == max(0, -(-(logn - tile) // most))
+        stages = [s for s0, s1 in plan for s in range(s0, s1 + 1)]
+        assert stages == list(range(tile + 1, logn + 1))
+        sizes = [s1 - s0 + 1 for s0, s1 in plan]
+        assert all(1 <= k <= most for k in sizes)
+        assert sizes == sorted(sizes, reverse=True)
+        assert not sizes or sizes[0] - sizes[-1] <= 1
+    assert [len(N.pass_plan(k)) for k in (11, 12, 14, 18, 20, 28)] == \
+        [0, 1, 1, 1, 2, 3]
+
+
+@pytest.mark.parametrize("logn,s0,s1", [(6, 3, 5), (5, 1, 5), (8, 2, 8),
+                                        (13, 12, 13)])
+def test_pass_plain_equals_stage_by_stage(logn, s0, s1):
+    """`ntt_pass_plain` over stages s0..s1, with both output multiplies,
+    equals the DIT stages s0..s1 walked one at a time in python ints with
+    the reference's twiddle table (`_stage_consts`: stage s's twiddle for
+    the pair at lo is row half - 1 + (lo & (half - 1))), then the two
+    products, on ranges inside and above the tile."""
+    n = 1 << logn
+    vals = [_full_width(40 * logn + b, n) for b in range(2)]
+    x = torch.stack([_words_of(REF_FR.encode(v)) for v in vals])
+    tw, _ = N.word_tables(logn, True, "cpu")
+    twiddle = REF_FR.decode(ref_ntt._stage_consts(logn, True)[1])
+    c, coset = 777, ref_ntt.fr_inv(COSET_GEN)
+    want = []
+    for v in vals:
+        a = list(v)
+        for s in range(s0, s1 + 1):
+            half = 1 << (s - 1)
+            for lo in range(n):
+                if lo & half:
+                    continue
+                t = a[lo + half] * twiddle[half - 1 + (lo & (half - 1))] % P
+                a[lo], a[lo + half] = (a[lo] + t) % P, (a[lo] - t) % P
+        want.append(a)
+    post = (N.fr_const(c, "cpu"), N.coset_words(logn, COSET_GEN, True, "cpu"))
+    got = N.ntt_pass_plain(x, logn, s0, s1, tw)
+    assert [FR_CTX.decode(words_to_limbs(g)) for g in got] == want
+    want = [[v * c * pow(coset, i, P) % P for i, v in enumerate(a)]
+            for a in want]
+    got = N.ntt_pass_plain(x, logn, s0, s1, tw, *post)
+    assert [FR_CTX.decode(words_to_limbs(g)) for g in got] == want
+    if s0 > N.TILE_LOG:                       # the wrapper on the CPU
+        assert torch.equal(N.ntt_pass(x, logn, s0, s1, tw, *post), got)
+
+
+@pytest.mark.parametrize("logn", [1, 4, 10, 11, 12, 13, 14])
 def test_ntt_words_match_reference(logn):
-    """The kernels' composition (tile pass, stage passes, fused input and
-    output tables), run as plain versions, equals the reference's
+    """The kernels' composition (the tile, the pass launches of several
+    stages from 2^13, fused input and output tables), run as plain
+    versions, equals the reference's
     `ntt_device`, `intt_device`, `coset_ntt_device` and
     `coset_intt_device` on a batch of three."""
     n = 1 << logn
@@ -270,16 +368,41 @@ def test_tile_product_mode_equals_pointwise_then_tile(logn):
             N.coset_words(logn, COSET_GEN, True, dev))
     last = post if logn <= N.TILE_LOG else (None, None)
     ab_c = N.pointwise_plain(x[:, 0], x[:, 1], x[:, 2])
-    got = N.ntt_tile_plain(x, logn, tw, None, *last, product=True)
+    got = N.ntt_tile_plain(x, logn, tw, None, *last, mode=N.PRODUCT)
     assert got.shape == (2, n, 8)
     assert torch.equal(got, N.ntt_tile_plain(ab_c, logn, tw, None, *last))
-    assert torch.equal(N.ntt_words(x, logn, True, None, *post, product=True),
+    assert torch.equal(N.ntt_words(x, logn, True, None, *post,
+                                   mode=N.PRODUCT),
                        N.ntt_words(ab_c, logn, True, None, *post))
 
 
+@pytest.mark.parametrize("logn", [4, 12])
+def test_tile_ab_mode_equals_pointwise_then_tile(logn):
+    """The tile launch's AB mode (a, b and a.b from (B, 2, n, 8) words, as
+    the zkey's iNTT takes its rows) equals `pointwise_plain` for a.b
+    followed by `ntt_tile_plain` of the three, with the output multiplies
+    when the tile is the whole transform; and `ntt_words` in AB mode
+    equals the transform of a, b and a.b, with its pass launch."""
+    n = 1 << logn
+    x = torch.stack([torch.stack([
+        _words_of(REF_FR.encode(_full_width(60 * logn + 2 * b + k, n)))
+        for k in range(2)]) for b in range(2)])       # (2, 2, n, 8)
+    dev = "cpu"
+    tw, _ = N.word_tables(logn, True, dev)
+    post = (N.fr_const(ref_ntt.fr_inv(n), dev), None)
+    last = post if logn <= N.TILE_LOG else (None, None)
+    abc = torch.cat([x, N.pointwise_plain(x[:, 0], x[:, 1]).unsqueeze(1)], 1)
+    got = N.ntt_tile_plain(x, logn, tw, None, *last, mode=N.AB)
+    assert got.shape == (2, 3, n, 8)
+    assert torch.equal(got, N.ntt_tile_plain(abc, logn, tw, None, *last))
+    assert torch.equal(N.ntt_words(x, logn, True, None, *post, mode=N.AB),
+                       N.ntt_words(abc, logn, True, None, *post))
+
+
 def test_pointwise_matches_python_ints():
-    """(a.b - c) x k, the encoding (x R^2) and the decoding (x 1 in
-    standard form) against python ints."""
+    """(a.b - c) x k, the encoding (x R^2), the row table's encoding
+    (`to_r2_words`, x R^3: c R^2 mod r) and the decoding (x 1 in standard
+    form) against python ints."""
     a, b, c = (_full_width(s, 50) for s in (1, 2, 3))
     k = _full_width(4, 1)[0]
     mont = [_words_of(REF_FR.encode(v)) for v in (a, b, c)]
@@ -287,7 +410,10 @@ def test_pointwise_matches_python_ints():
     assert FR_CTX.decode(words_to_limbs(got)) == [
         (x * y - z) * k % P for x, y, z in zip(a, b, c)]
     std = rowval.ints_to_words(a, "cpu")
-    assert torch.equal(rowval.to_mont_words(std), mont[0])
+    r2 = N.fr_const(FR_CTX.R2, "cpu", mont=False)
+    assert torch.equal(N.pointwise(std, k=r2), mont[0])
+    assert tensor_to_ints(words_to_limbs(rowval.to_r2_words(std))) == [
+        (x << 512) % P for x in a]
     back = N.pointwise(mont[0], k=N.fr_const(1, "cpu", mont=False))
     assert torch.equal(back, std)
 
@@ -383,8 +509,8 @@ def cuda_device():
 @pytest.mark.parametrize("logn", [1, 4, 9, 10, 11, 12, 14, 18])
 def test_ntt_kernels_match_plain_on_card(cuda_device, logn, batch):
     """Each launch against its plain version: the tile (with the input
-    table, and in product mode, which the H stage's coset iNTT uses,
-    B = 1 and 3), then each stage."""
+    table, and in its PRODUCT and AB gather modes, which the H stage's
+    coset iNTT and the zkey's iNTT use, B = 1 and 3), then each pass."""
     n = 1 << logn
     x = torch.stack([_words_of(REF_FR.encode(_full_width(7 * logn + b, n)))
                      for b in range(batch)]).to(cuda_device)
@@ -393,21 +519,24 @@ def test_ntt_kernels_match_plain_on_card(cuda_device, logn, batch):
     pre = N.coset_words(logn, COSET_GEN, False, dev)
     post_c = N.fr_const(ref_ntt.fr_inv(n), dev)
     post_t = N.coset_words(logn, COSET_GEN, True, dev)
-    for invert, product in ((False, False), (True, False), (True, True)):
+    for invert, mode in ((False, N.VALUE), (True, N.VALUE), (True, N.PRODUCT),
+                         (True, N.AB)):
         tw, _ = N.word_tables(logn, invert, dev)
-        last = (post_c, post_t) if logn <= N.TILE_LOG else (None, None)
-        inp, table = (abc, None) if product else (x, pre)
-        got = N.ntt_tile(inp, logn, tw, table, *last, product=product)
+        plan = N.pass_plan(logn)
+        last = (None, None) if plan else (post_c, post_t)
+        inp, table = {N.VALUE: (x, pre), N.PRODUCT: (abc, None),
+                      N.AB: (abc[:, :2].contiguous(), None)}[mode]
+        got = N.ntt_tile(inp, logn, tw, table, *last, mode=mode)
         torch.cuda.synchronize()
         assert torch.equal(got, N.ntt_tile_plain(inp, logn, tw, table, *last,
-                                                 product=product))
-        for s in range(N.TILE_LOG + 1, logn + 1):
-            post = (post_c, post_t) if s == logn else (None, None)
-            want = N.ntt_stage_plain(got, logn, s, tw, *post)
-            got = N.ntt_stage(got.clone(), logn, s, tw, *post)
+                                                 mode=mode))
+        for s0, s1 in plan:
+            post = (post_c, post_t) if s1 == logn else (None, None)
+            want = N.ntt_pass_plain(got, logn, s0, s1, tw, *post)
+            got = N.ntt_pass(got.clone(), logn, s0, s1, tw, *post)
             torch.cuda.synchronize()
             assert torch.equal(got, want)
-        if product:
+        if mode != N.VALUE:
             continue
         limbs = words_to_limbs(x)
         assert torch.equal(N.ntt(limbs, logn, invert),
@@ -415,6 +544,40 @@ def test_ntt_kernels_match_plain_on_card(cuda_device, logn, batch):
     limbs = words_to_limbs(x)
     assert torch.equal(N.coset_intt(N.coset_ntt(limbs, logn, COSET_GEN),
                                     logn, COSET_GEN), limbs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("logn", [12, 14, 18, 20, 22])
+def test_ntt_pass_matches_plain_on_card(cuda_device, logn, batch):
+    """Each pass launch of `pass_plan(logn)` (one at 2^12-2^18, two at
+    2^20 and 2^22) against its plain version on the tile's output, the
+    last with both output multiplies; then the whole `ntt_words` (one
+    tile launch and the passes) against the tile (held against its plain
+    version above) and the plain passes."""
+    n = 1 << logn
+    rng = np.random.default_rng(logn * 10 + batch)
+    w = rng.integers(0, 1 << 32, size=(batch, n, 8), dtype=np.int64)
+    w[..., 7] &= 0x0FFFFFFF                            # below r
+    x = torch.from_numpy(w.astype(np.int32)).to(cuda_device)
+    dev = N.device_key(cuda_device)
+    tw, _ = N.word_tables(logn, True, dev)
+    post = (N.fr_const(ref_ntt.fr_inv(n), dev),
+            N.coset_words(logn, COSET_GEN, True, dev))
+    plan = N.pass_plan(logn)
+    assert len(plan) == (1 if logn <= 18 else 2)
+    kernels.reset_counts()
+    got = N.ntt_words(x, logn, True, None, *post)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["fr_ntt_pass"] == len(plan)
+    want = N.ntt_tile(x, logn, tw)
+    for s0, s1 in plan:
+        last = post if s1 == logn else (None, None)
+        step = N.ntt_pass(want.clone(), logn, s0, s1, tw, *last)
+        torch.cuda.synchronize()
+        want = N.ntt_pass_plain(want, logn, s0, s1, tw, *last)
+        assert torch.equal(step, want)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -442,22 +605,41 @@ def test_rows_and_h_kernels_match_plain_on_card(cuda_device, name):
     if name in KINDS:
         mats, num_rows, m, nv, _ = _matrices(name)
         sp = rowval.SparseRows(mats, num_rows, cuda_device)
-        w = _full_width(77, nv)
-        w_mont = rowval.to_mont_words(rowval.ints_to_words(w, cuda_device))
-        got = rowval.rows_words(sp, w_mont, m)
+        w_std = rowval.ints_to_words(_full_width(77, nv), cuda_device)
+        got = rowval.rows_words(sp, w_std, m)
         torch.cuda.synchronize()
-        assert torch.equal(got, rowval.rows_plain(sp, w_mont, m))
+        assert torch.equal(got, rowval.rows_plain(sp, w_std, m))
         return
     cs, w = _circuit(name)
     m = port._domain_size(cs)
     sp = port.sparse_rows(cs, cuda_device)
-    w_mont = rowval.to_mont_words(rowval.ints_to_words(w, cuda_device))
-    got = rowval.rows_words(sp, w_mont, m)
+    w_std = rowval.ints_to_words(w, cuda_device)
+    got = rowval.rows_words(sp, w_std, m)
     torch.cuda.synchronize()
-    assert torch.equal(got, rowval.rows_plain(sp, w_mont, m))
+    assert torch.equal(got, rowval.rows_plain(sp, w_std, m))
     kernels.reset_counts()
     h = port.h_rows(cs, w, cuda_device)
-    assert all(kernels.launch_counts()[k] > 0 for k in NEW_KERNELS
-               if k != "fr_ntt_stage" or m > 1 << N.TILE_LOG)
+    passes = len(N.pass_plan(m.bit_length() - 1))
+    assert {k: kernels.launch_counts()[k] for k in NEW_KERNELS} == {
+        "fr_rows": 1, "fr_ntt_tile": 3, "fr_ntt_pass": 3 * passes,
+        "fr_pointwise": 0}
     assert torch.equal(h, port.h_rows_plain(cs, w, cuda_device))
     assert tensor_to_ints(h)[:m - 1] == ref.compute_h_host(cs, w)
+
+
+@pytest.mark.cuda
+def test_odd_coset_rows_match_plain_on_card(cuda_device):
+    """The zkey path's H stage on a card: the row launch, the iNTT's tile
+    gathering a, b and a.b, the coset NTT's tile and one pointwise launch
+    (a.b - c), equal to its plain version and to the reference's."""
+    cs, w = _circuit("chain200")
+    zk = port_zkey.generate_zkey(cs, random.Random(3), device=cuda_device)
+    port_zkey.zkey_rows(zk, cuda_device)
+    kernels.reset_counts()
+    got = port_zkey.odd_coset_rows(zk, w, cuda_device)
+    torch.cuda.synchronize()
+    assert {k: kernels.launch_counts()[k] for k in NEW_KERNELS} == {
+        "fr_rows": 1, "fr_ntt_tile": 2, "fr_ntt_pass": 0, "fr_pointwise": 1}
+    assert torch.equal(got, port_zkey.odd_coset_rows_plain(zk, w,
+                                                           cuda_device))
+    assert torch.equal(got.cpu(), port_zkey.odd_coset_rows(zk, w, "cpu"))

@@ -8,8 +8,9 @@ like the process circuit's, a row longer than four warps' slices, and
 shuffled zkey triples with repeats, empty rows and the domain's padding);
 `rows_words` on the CPU is held against the JAX package's
 `eval_rows_device` and the zkey path's `_ab_rows_device` on the same
-matrices. The tile kernel's swizzle, read from the source, is checked to
-give every exchange of its passes 32 distinct banks a warp. Inputs come
+matrices. The tile kernel's swizzle and the pass kernel's, read from the
+source, are checked to give every exchange 32 distinct banks a warp, the
+pass's at every number of stages and columns a block. Inputs come
 from numpy seeds; comparisons are exact (tolerance 0). The kernels
 themselves are held against their plain versions on a card
 (tests/test_torch_h_kernels.py, marked `cuda`)."""
@@ -148,8 +149,7 @@ def test_rows_words_match_reference_on_synthetic_matrices(kind):
     mats, num_rows, m, nv, ref = _matrices(kind)
     sp = rowval.SparseRows(mats, num_rows, "cpu")
     w = _full_width(np.random.default_rng(5), nv)
-    w_mont = rowval.to_mont_words(rowval.ints_to_words(w, "cpu"))
-    got = rowval.rows_words(sp, w_mont, m)
+    got = rowval.rows_words(sp, rowval.ints_to_words(w, "cpu"), m)
     if kind == "zkey_empty_padding":
         want = ref_zkey._ab_rows_device(
             types.SimpleNamespace(coeffs=ref, domain_size=m), w)
@@ -208,3 +208,81 @@ def test_tile_exchanges_hit_distinct_banks(tlog):
                 banks = np.bincount([swz(it[slot]) % 32 for it in warp])
                 worst = max(worst, int(banks.max()))
     assert worst == 1
+
+
+# -- the NTT pass kernel's layout and exchanges -----------------------------------
+
+def _source_int(name):
+    src = (CSRC / "fr_ntt.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def _pass_swizzle():
+    src = (CSRC / "fr_ntt.cu").read_text()
+    body = re.search(r"int pass_swz\(int i, int clog\) \{\s*return ([^;]+);",
+                     src).group(1)
+    assert re.fullmatch(r"[\sicolg()&|^*<>+0-9]+", body)
+    return eval(f"lambda i, clog: {body}")    # C and Python agree on it
+
+
+def _pass_exchanges(L, clog):
+    """Per exchange of the pass kernel over L stages and 2^clog columns,
+    the shared memory values (row x 2^clog + column) each work item
+    touches: the first groups' stores (nv = 4 consecutive rows of a
+    column), each radix-4 pair of stages (rows k + q 4h + {0, h, 2h, 3h}),
+    an odd last stage alone (rows k, k + R / 2); 32 consecutive items
+    form a warp, as in the kernel's loops."""
+    C, V = 1 << clog, 1 << (L + clog)
+    if L <= 2:                                 # no shared memory
+        return []
+    out = [[[((j >> clog) * 4 + k) << clog | (j & (C - 1)) for k in range(4)]
+            for j in range(V // 4)]]
+    i = 2
+    while i + 1 < L:
+        h = 1 << i
+        items = []
+        for j in range(V // 4):
+            c, jj = j & (C - 1), j >> clog
+            r0 = ((jj >> i) << (i + 2)) | (jj & (h - 1))
+            items.append([(r0 + q * h) << clog | c for q in range(4)])
+        out.append(items)
+        i += 2
+    if i == L - 1:
+        h = 1 << i
+        out.append([[(j >> clog) << clog | (j & (C - 1)),
+                     ((j >> clog) + h) << clog | (j & (C - 1))]
+                    for j in range(V // 2)])
+    return out
+
+
+def _pass_col_logs(L):
+    """The columns a block (log2) the C entry may choose for L stages:
+    from 2^(kPassValuesLog - L) down to 2^kMinColLog, no fewer than one
+    warp of first groups (`pass_col_log`)."""
+    top, lo = _source_int("kPassValuesLog"), _source_int("kMinColLog")
+    nvlog = 2 if L >= 2 else 1
+    return range(max(lo, 5 + nvlog - L), top - L + 1)
+
+
+@pytest.mark.parametrize("L", range(1, 8))
+def test_pass_exchanges_hit_distinct_banks(L):
+    """For every number of stages a pass takes (1 .. kPassLog) and every
+    block width the launch may choose, the swizzled word-major layout is
+    a permutation of the block's values, every exchange touches each
+    value once, and each warp's 32 accesses of one word fall in 32
+    different banks (no conflict)."""
+    assert L <= _source_int("kPassLog")
+    swz = _pass_swizzle()
+    for clog in _pass_col_logs(L):
+        V = 1 << (L + clog)
+        assert sorted(swz(i, clog) for i in range(V)) == list(range(V))
+        worst = 0
+        for items in _pass_exchanges(L, clog):
+            assert sorted(p for it in items for p in it) == list(range(V))
+            for w0 in range(0, len(items), 32):
+                warp = items[w0:w0 + 32]
+                for slot in range(len(warp[0])):
+                    banks = np.bincount([swz(it[slot], clog) % 32
+                                         for it in warp])
+                    worst = max(worst, int(banks.max()))
+        assert worst == (1 if L > 2 else 0)
