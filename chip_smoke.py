@@ -18,9 +18,13 @@ Phases, in order; any failure raises and exits nonzero:
      (a hit: setup is not run), its load time beside the setup's, and a
      proof from the loaded key verified;
   4. kernels at the first process proof's shapes: at each of its five
-     MSMs (`a`, `b1`, `l`, `h` over G1, `b2` over G2) the layout stage and
-     the accumulation kernel timed, with the mixed adds, the bound, the
-     kernel's registers and its grid in waves; at `a` and `b2` each MSM
+     MSMs (`a`, `b1`, `l`, `h` over G1, `b2` over G2) the layout's
+     kernels (`csrc/msm_layout.cu`: the recode, the scan, the scatter) and
+     the compaction kernel each equal to its plain version bit for bit and
+     timed alone beside it and its bound, the whole layout beside the
+     torch glue it replaced and torch.sort(stable) + gather; the layout
+     stage and the accumulation kernel timed, with the mixed adds, the
+     bound, the kernel's registers and its grid in waves; at `a` and `b2` each MSM
      kernel held against its plain torch version (equal emitted digits and
      limbs, equal window points as affine points) and timed; the weighted
      kernel's grid (at least one block per SM) and the adds its chunks cost
@@ -46,8 +50,9 @@ Phases, in order; any failure raises and exits nonzero:
      median of three steady `prove()` calls of the first process batch
      with their stage traces, the H pipeline's host enqueue time beside
      its span on the card, every kernel's launches in one steady prove
-     (the H stage's as planned, no pointwise launch) and a profiled
-     steady prove's device kernel count and busy time;
+     (the H stage's as planned, no pointwise launch; every MSM kernel
+     once an MSM) and a profiled steady prove's device kernel count and
+     busy time, whole and by kernel group;
   5. negative checks: a tampered proof and a wrong public input are
      rejected;
   6. path checks: every MSM kernel and every H pipeline kernel was
@@ -123,10 +128,13 @@ the very last line is the result: {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import ctypes
 import json
+import multiprocessing
 import os
 import random
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -159,7 +167,29 @@ KERNEL_ROWS = (
      "infimum_tpu/ntt/ntt.py:121"),
     ("fr_pointwise", "infimum_tpu_torch/csrc/fr_ntt.cu",
      "infimum_tpu/groth16/rowval.py:87"),
+    # counterparts of the glue inside the JAX package's compiled MSM program
+    # `_msm_fn` (XLA ops, not Pallas kernels): the recode scan over the
+    # windows, each window's stable sort_key_val with the gather of the
+    # signs (the scan of the block histograms and the scatter), and the
+    # compaction's .at[dest].set
+    ("msm_recode_g1", "infimum_tpu_torch/csrc/msm_layout.cu",
+     "infimum_tpu/msm/pallas_msm.py:441"),
+    ("msm_recode_g2", "infimum_tpu_torch/csrc/msm_layout.cu",
+     "infimum_tpu/msm/pallas_msm.py:441"),
+    ("msm_scan", "infimum_tpu_torch/csrc/msm_layout.cu",
+     "infimum_tpu/msm/pallas_msm.py:446"),
+    ("msm_scatter_g1", "infimum_tpu_torch/csrc/msm_layout.cu",
+     "infimum_tpu/msm/pallas_msm.py:446"),
+    ("msm_scatter_g2", "infimum_tpu_torch/csrc/msm_layout.cu",
+     "infimum_tpu/msm/pallas_msm.py:446"),
+    ("msm_compact_g1", "infimum_tpu_torch/csrc/msm_layout.cu",
+     "infimum_tpu/msm/pallas_msm.py:463"),
+    ("msm_compact_g2", "infimum_tpu_torch/csrc/msm_layout.cu",
+     "infimum_tpu/msm/pallas_msm.py:463"),
 )
+# every MSM kernel instance: a prove launches each of them
+MSM_KERNELS = tuple(name for name, *_ in KERNEL_ROWS
+                    if name.startswith("msm_"))
 # Bounds: the larger of bytes over the memory rate and 32-bit multiplies
 # over their rate. HBM3 of an H100 SXM: 3.35 TB/s (NVIDIA's data sheet).
 # 32-bit integer multiply and multiply-add: 64 per clock per SM on compute
@@ -290,11 +320,12 @@ def accum_grid(sdig, lanes: int, curve: str):
 
 
 def kernel_vs_plain(pk, cs, witness, mul_rate, tag=""):
-    """Time the accumulation kernel and the layout before it at the five
-    MSM shapes of a process proof; at `a` (G1) and `b2` (G2) also compare
-    each MSM kernel with its plain version. Returns per-kernel rows
-    (error, ms, plain ms, bound ms, bound by) at `a` and `b2`. `tag` goes
-    before each line's label."""
+    """Hold the layout's and the compaction's kernels against their plain
+    versions and time them, with the accumulation kernel, at the five MSM
+    shapes of a process proof; at `a` (G1) and `b2` (G2) also compare the
+    accumulation and weighted kernels with their plain versions. Returns
+    per-kernel rows (error, ms, plain ms, bound ms, bound by[, library
+    ms]) at `a` and `b2`. `tag` goes before each line's label."""
     rows_out = {}
     for name, curve, rows, sc, lanes in query_inputs(pk, cs, witness):
         rows_out.update(msm_kernels(name, curve, rows, sc, lanes, mul_rate,
@@ -304,8 +335,9 @@ def kernel_vs_plain(pk, cs, witness, mul_rate, tag=""):
 
 def msm_kernels(name, curve, rows, sc, lanes, mul_rate, tag="",
                 compare=False) -> dict:
-    """One MSM's layout stage and accumulation kernel timed, with the
-    mixed adds, the bound, the kernel's registers and its grid in waves;
+    """One MSM's layout and compaction kernels (`layout_kernels`,
+    `compact_kernel`) and its accumulation kernel timed, with the mixed
+    adds, the bound, the kernel's registers and its grid in waves;
     with `compare`, each MSM kernel held against its plain torch version
     (equal emitted digits and limbs, equal window points as affine points)
     and timed. Returns per-kernel rows (error, ms, plain ms, bound ms,
@@ -314,10 +346,10 @@ def msm_kernels(name, curve, rows, sc, lanes, mul_rate, tag="",
 
     spec = M.SPECS[curve.name]
     N = rows.shape[0]
-    lay_ms, layout = cuda_ms(
-        lambda: M.lane_layout(rows, sc, lanes, spec), 3, warm=1)
+    glue, layout = layout_kernels(name, spec, rows, sc, lanes, mul_rate, tag)
     acc_ms, (edig, ept) = cuda_ms(lambda: M.accumulate(*layout, spec), 3,
                                   warm=1)
+    glue.update(compact_kernel(name, spec, edig, ept, lanes, mul_rate, tag))
     # the least work these inputs need: one mixed add per entry whose
     # digit repeats the one before it in its lane (and is not 0)
     sdig = layout[0]
@@ -327,7 +359,7 @@ def msm_kernels(name, curve, rows, sc, lanes, mul_rate, tag="",
                       mixed * MIXED_MULS[curve.name], mul_rate)
     blocks, live, resident = accum_grid(sdig, lanes, curve.name)
     log(f"[{tag}accum] {name} ({curve.name}, {N} rows, {lanes} lanes, T "
-        f"{N // lanes}): layout {lay_ms:.3f} ms; kernel {acc_ms:.3f} ms;"
+        f"{N // lanes}): kernel {acc_ms:.3f} ms;"
         f" {mixed} mixed adds, bound {acc_bound[0]:.3f} ms "
         f"({acc_bound[1]}), {acc_bound[0] / acc_ms:.1%} of bound; "
         f"{accum_resources(curve.name)}; grid {blocks} blocks, {live} "
@@ -372,7 +404,111 @@ def msm_kernels(name, curve, rows, sc, lanes, mul_rate, tag="",
     return {f"msm_accum_{curve.name}": (err, acc_ms, acc_plain_ms,
                                         *acc_bound),
             f"msm_weighted_{curve.name}": (err, wt_ms, wt_plain_ms,
-                                           *wt_bound)}
+                                           *wt_bound), **glue}
+
+
+def layout_kernels(name, spec, rows, sc, lanes, mul_rate, tag="") -> tuple:
+    """The layout's kernels (csrc/msm_layout.cu) at one MSM's shape: the
+    recode, the scan and the scatter, each held bit for bit against its
+    plain version on the same inputs, timed alone (10 calls behind a spin
+    kernel) beside its plain version and its bound (bytes: no products);
+    then the whole layout through its wrappers against `lane_layout_plain`
+    from the table's limbs (the torch glue it replaced: the recode, the
+    stable sort, the sign gather and the table's conversion) and against
+    torch.sort(stable=True) plus the gather of the signs (the library
+    call). Returns rows (error, ms, plain ms, bound ms, bound by[, library
+    ms]) of the curve's recode and scatter and, at G1, the scan; and the
+    layout, the accumulation kernel's inputs."""
+    from infimum_tpu_torch.msm import msm as M
+
+    reps, c = 10, spec.name
+    packed, counts = M.layout_recode(sc, spec)
+    p_packed, p_counts = M.layout_recode_plain(sc, spec)
+    offsets, p_offsets = counts.clone(), counts.clone()
+    totals = M.layout_scan(offsets)
+    p_totals = M.layout_scan_plain(p_offsets)
+    got = M.layout_scatter(packed, offsets, totals, spec)
+    want = M.layout_scatter_plain(packed, offsets, totals, spec)
+    whole = M.lane_layout(rows, sc, lanes, spec)
+    limbs = M.words_to_limbs(rows) if rows.dtype == torch.int32 else rows
+    before = M.lane_layout_plain(limbs, sc, lanes, spec)
+    checks = {
+        "recode": torch.equal(packed, p_packed) and torch.equal(counts,
+                                                                p_counts),
+        "scan": torch.equal(totals, p_totals) and torch.equal(offsets,
+                                                              p_offsets),
+        "scatter": all(torch.equal(g, w) for g, w in zip(got, want)),
+        "lane_layout": all(torch.equal(g, w) for g, w in zip(whole, before))}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"{name}: {bad} differ from their plain versions")
+    pool = [counts.clone() for _ in range(reps + 1)]      # scanned in place
+    plain_pool = [counts.clone() for _ in range(4)]
+    times = {
+        "recode": (alone_ms(lambda: M.layout_recode(sc, spec), reps)[0],
+                   cuda_ms(lambda: M.layout_recode_plain(sc, spec), 3,
+                           warm=1)[0]),
+        "scan": (alone_ms(lambda: M.layout_scan(pool.pop()), reps)[0],
+                 cuda_ms(lambda: M.layout_scan_plain(plain_pool.pop()), 3,
+                         warm=1)[0]),
+        "scatter": (alone_ms(lambda: M.layout_scatter(
+            packed, offsets, totals, spec), reps)[0], cuda_ms(
+            lambda: M.layout_scatter_plain(packed, offsets, totals, spec), 3,
+            warm=1)[0])}
+    bounds = {"recode": bound(nbytes(sc, packed, counts), 0, mul_rate),
+              "scan": bound(2 * nbytes(counts) + nbytes(totals), 0, mul_rate),
+              "scatter": bound(nbytes(packed, offsets, totals, *got), 0,
+                               mul_rate)}
+    mags, sgns = M.recode(sc, spec)
+    lib_ms = cuda_ms(lambda: sgns.gather(1, torch.sort(
+        mags, dim=1, stable=True)[1]), 3, warm=1)[0]
+    whole_ms = cuda_ms(lambda: M.lane_layout(rows, sc, lanes, spec), 3,
+                       warm=1)[0]
+    before_ms = cuda_ms(lambda: M.lane_layout_plain(limbs, sc, lanes, spec),
+                        3, warm=1)[0]
+    fn_bound = bound(nbytes(sc, *got), 0, mul_rate)
+    N, (nwin, nblk, bins) = sc.shape[0], counts.shape
+    log(f"[{tag}layout] {name} ({c}, {N} entries x {nwin} windows, {nblk} "
+        f"blocks of {spec.layout_chunk} a window, {bins} bins): " + "; ".join(
+            f"{k} {ms:.4f} ms alone (plain {p:.3f}), bound {bounds[k][0]:.4f}"
+            f" ({bounds[k][1]}), {bounds[k][0] / ms:.1%} of bound"
+            for k, (ms, p) in times.items())
+        + f"; the layout {whole_ms:.4f} ms through its wrappers (the "
+        f"function's bound {fn_bound[0]:.4f}, {fn_bound[0] / whole_ms:.1%}) "
+        f"against the torch glue it replaced {before_ms:.3f} ms and "
+        f"torch.sort(stable) + gather {lib_ms:.3f} ms; every kernel equal to"
+        f" its plain version; card {card_line()}")
+    out = {f"msm_recode_{c}": (0, *times["recode"], *bounds["recode"]),
+           f"msm_scatter_{c}": (0, *times["scatter"], *bounds["scatter"],
+                                lib_ms)}
+    if c == "g1":
+        out["msm_scan"] = (0, *times["scan"], *bounds["scan"])
+    return out, whole
+
+
+def compact_kernel(name, spec, edig, ept, lanes, mul_rate, tag="") -> dict:
+    """The compaction kernel at one MSM's shape on the accumulation
+    kernel's emissions: equal to `compact_plain` bit for bit, timed alone
+    beside it and its bound (bytes: the emitted digits, the live
+    emissions' words, the packed slots). Returns its row."""
+    from infimum_tpu_torch.msm import msm as M
+
+    K = spec.n_buckets + lanes + 2
+    got = M.compact(edig, ept, K)
+    want = M.compact_plain(edig, ept, K)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{name}: compaction differs from plain")
+    ms = alone_ms(lambda: M.compact(edig, ept, K), 10)[0]
+    plain_ms = cuda_ms(lambda: M.compact_plain(edig, ept, K), 3, warm=1)[0]
+    nwin, T1, PW, L = ept.shape
+    live = int((got[0] > 0).sum())
+    least = bound(nbytes(edig, *got) + live * PW * 4, 0, mul_rate)
+    log(f"[{tag}compact] {name} ({spec.name}, {nwin} windows x {T1} x {L} "
+        f"emissions, ept {nbytes(ept) / 1e6:.1f} MB; {live} live, "
+        f"{live / edig.numel():.2%}; K {K}): kernel {ms:.4f} ms alone, plain "
+        f"{plain_ms:.3f} ms, bound {least[0]:.4f} ({least[1]}), "
+        f"{least[0] / ms:.1%} of bound; equal to plain; card {card_line()}")
+    return {f"msm_compact_{spec.name}": (0, ms, plain_ms, *least)}
 
 
 def weighted_adds(cdig, spec) -> dict:
@@ -489,12 +625,21 @@ def steady_prove(pk, cs, witness, publics) -> float:
     return runs[1][0]
 
 
+# the device kernels of a traced prove, grouped by the name each contains
+# (the layout's count grid is msm_count_kernel, the compaction's two grids
+# msm_compact_count_kernel and msm_compact_write_kernel)
+TRACE_GROUPS = ("fr_rows", "fr_ntt_tile", "fr_ntt_pass", "fr_pointwise",
+                "msm_accum", "msm_weighted", "msm_recode", "msm_count",
+                "msm_scan", "msm_scatter", "msm_compact")
+
+
 def traced_prove(pk, cs, witness) -> None:
     """One more steady prove() under `utils.profiling.trace`, its Chrome
     trace written to a temporary INFIMUM_PROFILE_DIR and read back: the
     device kernels it launched (the profiled prove's kernel count), the
     card's busy time (the union of its kernels, copies and sets) against
-    the prove's host clock, and the kernels by name. The profiler slows
+    the prove's host clock, and the kernels and their busy time by group
+    (`TRACE_GROUPS`). The profiler slows
     the host, so read the busy time and the counts, not the wall time."""
     import tempfile
 
@@ -526,16 +671,18 @@ def traced_prove(pk, cs, witness) -> None:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
     names: dict = {}
+    group_us: dict = {}
     for e in events:
         if e.get("ph") == "X" and e.get("cat") == "kernel":
             key = e.get("name", "?")
-            key = next((k for k in ("fr_rows", "fr_ntt_tile", "fr_ntt_pass",
-                                    "fr_pointwise", "msm_accum",
-                                    "msm_weighted") if k in key), "other")
+            key = next((k for k in TRACE_GROUPS if k in key), "other")
             names[key] = names.get(key, 0) + 1
+            group_us[key] = group_us.get(key, 0.0) + e["dur"]
     kernels = sum(names.values())
     log(f"[prove] profiled steady prove(): {kernels} device kernels "
         f"({json.dumps(names)}), {len(spans) - kernels} copies and sets; "
+        f"card busy ms by kernel group "
+        f"{json.dumps({k: round(v / 1e3, 4) for k, v in group_us.items()})}; "
         f"card busy {busy / 1e3:.1f} ms of {wall_us / 1e3:.1f} ms under the "
         f"profiler (idle share {1 - busy / wall_us:.3f}); card "
         f"{card_line()}")
@@ -1047,10 +1194,18 @@ def prove_launches(pk, cs, witness) -> dict:
     if got != want or want["fr_pointwise"]:
         raise AssertionError(f"a steady prove()'s H launches {got}, want "
                              f"{want}")
-    missing = [k for k in ("msm_accum_g1", "msm_accum_g2", "msm_weighted_g1",
-                           "msm_weighted_g2") if not counts.get(k)]
+    missing = [k for k in MSM_KERNELS if not counts.get(k)]
     if missing:
         raise AssertionError(f"a steady prove() never launched {missing}")
+    # each MSM launches every stage of its curve once, and the scan once
+    for curve in ("g1", "g2"):
+        stages = {k: counts[k] for k in MSM_KERNELS if k.endswith(curve)}
+        if len(set(stages.values())) != 1:
+            raise AssertionError(f"a steady prove()'s {curve} MSM launches "
+                                 f"differ: {stages}")
+    if counts["msm_scan"] != counts["msm_accum_g1"] + counts["msm_accum_g2"]:
+        raise AssertionError(f"a steady prove() launched msm_scan "
+                             f"{counts['msm_scan']} times, want one an MSM")
     log(f"[prove] launches of one steady process prove(): "
         f"{json.dumps(counts)} (no fr_pointwise: the witness is not "
         f"encoded)")
@@ -1670,9 +1825,10 @@ def multi_inputs(run, trees, tmp: str):
     from infimum_tpu_torch.msm import msm as M
     from infimum_tpu_torch.ntt.ntt import ntt
 
-    def save(name, limbs):
+    def save(name, t):              # limbs, or a query's table as words
         path = os.path.join(tmp, f"{name}.npy")
-        np.save(path, limbs_to_words(limbs).cpu().numpy())
+        words = t if t.dtype == torch.int32 else limbs_to_words(t)
+        np.save(path, words.cpu().numpy())
         return path
 
     q = {name: (curve.name, rows, sc) for name, curve, rows, sc, _ in
@@ -1858,8 +2014,7 @@ def multi_gpu_phase(run, trees) -> dict:
                                          f"{r['foreign'][:5]}")
                 for k, n in r["launches"].items():
                     summed[k] = summed.get(k, 0) + n
-                need = ([f"msm_{s}_{c}" for s in ("accum", "weighted")
-                         for c in ("g1", "g2")] if work["msm"] else []) + (
+                need = (list(MSM_KERNELS) if work["msm"] else []) + (
                     ["poseidon_perm"] if work["tree"] else []) + (
                     ["fr_ntt_tile"] if work["ntt"] else [])
                 idle = [k for k in need if r["launches"][k] == 0]
@@ -1947,6 +2102,92 @@ def multi_gpu_phase(run, trees) -> dict:
         f"{time.perf_counter() - t0:.1f}s")
     log(f"[multi] record {json.dumps({'msm_scaling': rec})}")
     return summed
+
+
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def adopt_orphans() -> None:
+    """Make this process the reaper of its descendants (Linux): a process
+    that a child started and left behind becomes this process's child, so
+    `stop_children` finds it."""
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(PR_SET_CHILD_SUBREAPER, 1,
+                                                0, 0, 0)
+    except (OSError, AttributeError):
+        pass
+
+
+def child_pids() -> dict:
+    """{pid: command line} of this process's living children, from /proc."""
+    me, out = os.getpid(), {}
+    for d in os.listdir("/proc") if os.path.isdir("/proc") else ():
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+            state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+            if int(ppid) != me or state == "Z":
+                continue
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                out[int(d)] = f.read().replace(b"\0", b" ").decode(
+                    errors="replace").strip()[:200]
+        except (OSError, ValueError):
+            pass
+    return out
+
+
+def signal_child(pid: int, sig: int) -> None:
+    """Send `sig` to a child and reap it if it has ended."""
+    try:
+        os.kill(pid, sig)
+        os.waitpid(pid, os.WNOHANG)
+    except (ProcessLookupError, ChildProcessError):
+        pass
+
+
+def stop_children() -> None:
+    """End every process this run started that is still alive: the
+    multiprocessing children, the resource tracker that phase 11's queue
+    started (it ignores SIGTERM and ends when its pipe closes; the
+    garbage collector runs first, so that no semaphore of a dropped queue
+    starts it again at exit), and any other child or adopted orphan
+    (SIGTERM, then SIGKILL after 5 s). Each is reaped, and each one found
+    is named on standard error."""
+    import gc
+    from multiprocessing import resource_tracker
+
+    gc.collect()
+    for p in multiprocessing.active_children():
+        print(f"[exit] stopping process {p.pid} ({p.name})", file=sys.stderr,
+              flush=True)
+        p.terminate()
+        p.join(5)
+        if p.is_alive():
+            p.kill()
+            p.join()
+    tracker = resource_tracker._resource_tracker
+    if getattr(tracker, "_pid", None) is not None and hasattr(tracker,
+                                                              "_stop"):
+        print(f"[exit] stopping the resource tracker {tracker._pid}",
+              file=sys.stderr, flush=True)
+        tracker._stop()
+    left = child_pids()
+    for pid, cmd in left.items():
+        print(f"[exit] stopping child {pid}: {cmd}", file=sys.stderr,
+              flush=True)
+        signal_child(pid, signal.SIGTERM)
+    deadline = time.monotonic() + 5
+    while left and time.monotonic() < deadline:
+        time.sleep(0.1)
+        for pid in left:
+            signal_child(pid, 0)
+        left = child_pids()
+    for pid in left:
+        signal_child(pid, signal.SIGKILL)
+        try:
+            os.waitpid(pid, 0)
+        except ChildProcessError:
+            pass
 
 
 def foreign_modules() -> list[str]:
@@ -2092,12 +2333,12 @@ def main(argv: list[str]) -> int:
 
     report = []
     for name, source, replaces in KERNEL_ROWS:
-        err, ms, plain_ms, bound_ms, bound_by = cmp[name]
+        err, ms, plain_ms, bound_ms, bound_by, *library = cmp[name]
         report.append(dict(name=name, route="cuda", source=source,
                            replaces=replaces, launches=launches[name],
                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=bound_by,
-                           library_ms=None))
+                           library_ms=library[0] if library else None))
     print(json.dumps({"kernels": report}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -2107,4 +2348,9 @@ def main(argv: list[str]) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    adopt_orphans()
+    try:
+        code = main(sys.argv[1:])
+    finally:
+        stop_children()
+    sys.exit(code)

@@ -39,7 +39,8 @@ from ..curve.bn254_host import (
 from ..curve.proj import G1_DEV, G2_DEV, CurveDev
 from ..ff.bn254 import FR_MOD, batch_inv_mod, fr_inv
 from ..ff.fp import (
-    FR_CTX, NLIMBS, device_key, tensor_to_ints, words_to_limbs,
+    FR_CTX, NLIMBS, device_key, limbs_to_words, tensor_to_ints,
+    words_to_limbs,
 )
 from ..msm.fixed_base import fixed_base_mul_batch
 from ..msm.msm import (
@@ -287,9 +288,10 @@ def compute_h(cs: ConstraintSystem, witness: list[int], device="cuda"):
 
 def _query_encoding(pk: ProvingKey, name: str, points, curve: CurveDev,
                     device):
-    """(rows, infinity mask, lanes) for a proving-key query on `device`,
-    encoded once per key; an infinity point is replaced by the generator
-    and given a zero scalar."""
+    """(words, infinity mask, lanes) for a proving-key query on `device`,
+    encoded once per key: words is the (N, AW) int32 table of its affine
+    points that the accumulation kernel reads; an infinity point is
+    replaced by the generator and given a zero scalar."""
     cache = pk.__dict__.setdefault("_torch_enc_cache", {})
     key = (name, device_key(device))
     ent = cache.get(key)
@@ -297,7 +299,7 @@ def _query_encoding(pk: ProvingKey, name: str, points, curve: CurveDev,
         lanes = msm_lanes(len(points), curve.name)
         none_mask = torch.tensor([p is None for p in points], dtype=torch.bool)
         safe = [curve.gen if p is None else p for p in points]
-        ent = (encode_rows(safe, lanes, curve.name, device),
+        ent = (limbs_to_words(encode_rows(safe, lanes, curve.name, device)),
                none_mask.to(device), lanes)
         cache[key] = ent
     return ent
@@ -305,16 +307,16 @@ def _query_encoding(pk: ProvingKey, name: str, points, curve: CurveDev,
 
 def _msm_inputs(pk: ProvingKey, name: str, points, scalars: torch.Tensor,
                 curve: CurveDev = G1_DEV):
-    """(rows, scalars, lanes) of one query's MSM on the scalars' device:
-    the query's encoding, and `scalars` ((n, 16) standard-form limbs)
+    """(words, scalars, lanes) of one query's MSM on the scalars' device:
+    the query's encoded table, and `scalars` ((n, 16) standard-form limbs)
     padded with zeros to its rows, zero at its infinity points."""
-    rows, none_mask, lanes = _query_encoding(pk, name, points, curve,
-                                             scalars.device)
+    words, none_mask, lanes = _query_encoding(pk, name, points, curve,
+                                              scalars.device)
     n = scalars.shape[0]
-    sc = torch.zeros((rows.shape[0], NLIMBS), dtype=torch.int64,
+    sc = torch.zeros((words.shape[0], NLIMBS), dtype=torch.int64,
                      device=scalars.device)
     sc[:n] = torch.where(none_mask[:n].unsqueeze(-1), 0, scalars)
-    return rows, sc, lanes
+    return words, sc, lanes
 
 
 def _msm_async(pk: ProvingKey, name: str, points, scalars: torch.Tensor,
@@ -323,8 +325,8 @@ def _msm_async(pk: ProvingKey, name: str, points, scalars: torch.Tensor,
     or a ZkeyData, `scalars` (n, 16) standard-form limbs on the query's
     device. Returns a closure that waits and combines the window sums into
     the affine result."""
-    rows, sc, lanes = _msm_inputs(pk, name, points, scalars, curve)
-    wins = msm_rows_async(rows, sc, lanes, curve.name)
+    words, sc, lanes = _msm_inputs(pk, name, points, scalars, curve)
+    wins = msm_rows_async(words, sc, lanes, curve.name)
     return lambda: combine_window_points(wins.cpu(), curve.name)
 
 

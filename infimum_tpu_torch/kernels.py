@@ -13,9 +13,10 @@ goes to the card its tensors lie on, with that card current, whichever
 card the calling thread had current.
 
 `Kernel.launches` counts the launches of one kernel instance (an MSM
-kernel for one curve, the Poseidon permutation for every width, its
-measured variants apart; the H pipeline's row evaluation, NTT tile and
-pass launches and pointwise step), so a run can show that its main path went
+kernel for one curve, the MSM layout's recode, scan and scatter and its
+compaction, the Poseidon permutation for every width, its measured
+variants apart; the H pipeline's row evaluation, NTT tile and pass
+launches and pointwise step), so a run can show that its main path went
 through the kernel. Nothing here is
 imported or built unless a CUDA tensor reaches a kernel wrapper.
 """
@@ -36,8 +37,8 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
-SOURCES = ("msm_accum.cu", "msm_weighted.cu", "poseidon_perm.cu",
-           "fr_ntt.cu", "fr_rows.cu")
+SOURCES = ("msm_accum.cu", "msm_weighted.cu", "msm_layout.cu",
+           "poseidon_perm.cu", "fr_ntt.cu", "fr_rows.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "--resource-usage")
 
@@ -74,6 +75,13 @@ KERNELS = {
     "msm_accum_g2": Kernel("inf_msm_accum_g2", 6, 3),
     "msm_weighted_g1": Kernel("inf_msm_weighted_g1", 4, 2),
     "msm_weighted_g2": Kernel("inf_msm_weighted_g2", 4, 2),
+    "msm_recode_g1": Kernel("inf_msm_recode_g1", 3, 2),
+    "msm_recode_g2": Kernel("inf_msm_recode_g2", 3, 2),
+    "msm_scan": Kernel("inf_msm_scan", 2, 3),
+    "msm_scatter_g1": Kernel("inf_msm_scatter_g1", 6, 2),
+    "msm_scatter_g2": Kernel("inf_msm_scatter_g2", 6, 2),
+    "msm_compact_g1": Kernel("inf_msm_compact_g1", 5, 4),
+    "msm_compact_g2": Kernel("inf_msm_compact_g2", 5, 4),
     "poseidon_perm": Kernel("inf_poseidon_perm", 6, 3),
     "poseidon_perm_variant": Kernel("inf_poseidon_perm_variant", 6, 4),
     "fr_rows": Kernel("inf_fr_rows", 8, 2),

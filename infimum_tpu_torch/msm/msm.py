@@ -1,18 +1,21 @@
-"""Signed-digit Pippenger MSM for BN254 G1 and G2, on two CUDA kernels.
+"""Signed-digit Pippenger MSM for BN254 G1 and G2, on CUDA kernels.
 
 Counterpart of `infimum_tpu/msm/pallas_msm.py:403-553`. Per window, with
-all windows batched into one launch of each kernel:
+all windows batched into each launch:
 
-  1. torch (`lane_layout`): signed c-bit recode of the scalars, a batched
-     per-window sort by |digit| and the gather of the signs; lane l owns
+  1. kernels `msm_recode`, `msm_scan`, `msm_scatter` (csrc/msm_layout.cu,
+     `lane_layout`): signed c-bit recode of the scalars with per-block
+     |digit| histograms, their offsets, and a stable counting sort of each
+     window by |digit| with the signs and the entries' rows; lane l owns
      the sorted range [l*T, (l+1)*T). No copy of the points is made.
   2. kernel `msm_accum` (csrc/msm_accum.cu): run-emission accumulation.
      It reads each entry's affine point from the row-major (N, AW) table
      through the sort's order. Its emissions are the reference's: (nwin,
      T+1, L) digits and (nwin, T+1, PW, L) points, lane l's runs in order.
-  3. torch: compaction. The sorted order bounds the live emissions per
-     window by n_buckets + L + 2, so a flag / cumsum / scatter packs them,
-     lane by lane: each window's list is then non-decreasing in digit.
+  3. kernel `msm_compact` (csrc/msm_layout.cu, `compact`): the sorted order
+     bounds the live emissions per window by n_buckets + L + 2, so they
+     pack, lane by lane, into that many slots: each window's list is then
+     non-decreasing in digit.
   4. kernel `msm_weighted` (csrc/msm_weighted.cu): sum of digit * point
      over each window's emissions, by running sums over chunks of the
      sorted list.
@@ -24,7 +27,7 @@ Montgomery R = 2^256 in both, so the values are the same integers.
 
 Each kernel wrapper launches its kernel for a CUDA tensor and raises for
 any other device but the CPU; for a CPU tensor it runs the plain version
-beside it, which computes the same emissions and window sums in torch.
+beside it, which computes the same outputs in torch.
 """
 
 from __future__ import annotations
@@ -50,11 +53,14 @@ class CurveSpec:
     the accumulation kernel reads; a projective point (an emission, a
     window sum) is PR limbs or PW words, X, Y, Z."""
 
-    def __init__(self, name: str, c_bits: int, chunk: int):
+    def __init__(self, name: str, c_bits: int, chunk: int, layout_chunk: int):
         self.name = name
         self.curve = CURVES[name]
         self.c_bits = c_bits
         self.chunk = chunk          # = CHUNK_G1 / CHUNK_G2, msm_weighted.cu
+        # entries a block of the layout's histograms and scatter: = kChunkG1
+        # / kChunkG2, msm_layout.cu
+        self.layout_chunk = layout_chunk
         self.n_buckets = 1 << (c_bits - 1)
         self.n_windows = -(-254 // c_bits)
         self.RF = NLIMBS * (2 if name == "g2" else 1)  # 16-bit limbs per coord
@@ -62,8 +68,8 @@ class CurveSpec:
         self.AW, self.PW = self.AF // 2, self.PR // 2
 
 
-G1_SPEC = CurveSpec("g1", 13, 8)      # 20 windows
-G2_SPEC = CurveSpec("g2", 10, 4)      # 26 windows
+G1_SPEC = CurveSpec("g1", 13, 8, 8192)      # 20 windows
+G2_SPEC = CurveSpec("g2", 10, 4, 4096)      # 26 windows
 SPECS = {"g1": G1_SPEC, "g2": G2_SPEC}
 
 
@@ -115,12 +121,134 @@ def recode(sc: torch.Tensor, spec: CurveSpec):
             neg.to(torch.int32))
 
 
-# -- kernel 1: run-emission accumulation --------------------------------------------
-
-def _check(t: torch.Tensor, shape, name: str):
-    if t.dtype != torch.int32 or not t.is_contiguous() or tuple(t.shape) != shape:
-        raise ValueError(f"{name}: want contiguous int32 {shape}, got "
+def _check(t: torch.Tensor, shape, name: str, dtype=torch.int32):
+    if t.dtype != dtype or not t.is_contiguous() or tuple(t.shape) != shape:
+        raise ValueError(f"{name}: want contiguous {dtype} {shape}, got "
                          f"{t.dtype} {tuple(t.shape)}")
+
+
+# -- the layout's kernels: recode, offsets, stable scatter --------------------------
+
+SCATTER_WARPS = 8           # = kScatterWarps, msm_layout.cu
+SIGN_BIT = 1 << 15          # a packed digit: |digit| | sign << 15 (uint16)
+
+
+def layout_blocks(n: int, spec: CurveSpec) -> int:
+    """Blocks of `spec.layout_chunk` entries a window of n entries."""
+    return -(-n // spec.layout_chunk)
+
+
+def layout_recode(sc, spec: CurveSpec):
+    """(N, 16) int64 standard-form scalar limbs, reduced mod r -> packed
+    (nwin, N) int16 digits, |digit| | sign << 15 (the bit pattern of
+    uint16), and counts (nwin, nblk, bins) int32: each window's |digit|
+    per block of `spec.layout_chunk` entries, bins = 2^(c-1) + 1."""
+    n = sc.shape[0]
+    nblk = layout_blocks(n, spec)
+    if sc.device.type == "cuda":
+        _check(sc, (n, NLIMBS), "sc", torch.int64)
+        if sc.data_ptr() % 16:
+            raise ValueError("sc: the kernel reads 16-byte vectors")
+        packed = torch.empty((spec.n_windows, n), dtype=torch.int16,
+                             device=sc.device)
+        counts = torch.empty((spec.n_windows, nblk, spec.n_buckets + 1),
+                             dtype=torch.int32, device=sc.device)
+        kernels.KERNELS[f"msm_recode_{spec.name}"](sc, packed, counts, n,
+                                                   nblk)
+        return packed, counts
+    if sc.device.type != "cpu":
+        raise ValueError(f"no msm_recode kernel for {sc.device}")
+    return layout_recode_plain(sc, spec)
+
+
+def layout_recode_plain(sc, spec: CurveSpec):
+    """Plain torch version of the recode kernel: `recode`, packed, and a
+    histogram of each (window, block)."""
+    mags, sgns = recode(sc, spec)
+    nwin, n = mags.shape
+    bins, nblk = spec.n_buckets + 1, layout_blocks(n, spec)
+    blk = torch.arange(n, device=sc.device) // spec.layout_chunk
+    win = torch.arange(nwin, device=sc.device)[:, None]
+    counts = torch.bincount(((win * nblk + blk) * bins + mags).flatten(),
+                            minlength=nwin * nblk * bins)
+    return ((mags - sgns * SIGN_BIT).to(torch.int16),
+            counts.view(nwin, nblk, bins).to(torch.int32))
+
+
+def layout_scan(counts):
+    """counts (nwin, nblk, bins) int32 -> totals (nwin, bins) int32, each
+    bin's count in its window; counts becomes, in place, its exclusive
+    prefix over the blocks: each block's first slot in each bin, counted
+    from the bin's first slot."""
+    nwin, nblk, bins = counts.shape
+    if counts.device.type == "cuda":
+        _check(counts, (nwin, nblk, bins), "counts")
+        totals = torch.empty((nwin, bins), dtype=torch.int32,
+                             device=counts.device)
+        kernels.KERNELS["msm_scan"](counts, totals, nwin, nblk, bins)
+        return totals
+    if counts.device.type != "cpu":
+        raise ValueError(f"no msm_scan kernel for {counts.device}")
+    return layout_scan_plain(counts)
+
+
+def layout_scan_plain(counts):
+    """Plain torch version of the scan kernel, in place as it is."""
+    totals = counts.sum(1, dtype=torch.int32)
+    counts.copy_(counts.cumsum(1) - counts)
+    return totals
+
+
+def layout_scatter(packed, offsets, totals, spec: CurveSpec):
+    """packed (nwin, N) int16 digits, offsets (nwin, nblk, bins) the scanned
+    counts and totals (nwin, bins) -> sdig, ssgn, order (nwin, N) int32:
+    each window's |digits| in stable sorted order, their signs and the
+    index of each entry."""
+    nwin, n = packed.shape
+    nblk, bins = layout_blocks(n, spec), spec.n_buckets + 1
+    if packed.device.type == "cuda":
+        _check(packed, (nwin, n), "packed", torch.int16)
+        _check(offsets, (nwin, nblk, bins), "offsets")
+        _check(totals, (nwin, bins), "totals")
+        out = torch.empty((3, nwin, n), dtype=torch.int32,
+                          device=packed.device)
+        kernels.KERNELS[f"msm_scatter_{spec.name}"](
+            packed, offsets, totals, out[0], out[1], out[2], n, nblk)
+        return out.unbind(0)
+    if packed.device.type != "cpu":
+        raise ValueError(f"no msm_scatter kernel for {packed.device}")
+    return layout_scatter_plain(packed, offsets, totals, spec)
+
+
+def layout_scatter_plain(packed, offsets, totals, spec: CurveSpec):
+    """Plain torch version of the scatter kernel's index arithmetic: an
+    entry's slot is its bin's first slot in the window (the exclusive scan
+    of the totals over the bins), plus its block's offset in the bin, plus
+    its rank among the equal digits before it in its block; the digit of
+    sorted position s is the bin whose slots hold s."""
+    nwin, n = packed.shape
+    dev = packed.device
+    mags = (packed & 0x7FFF).to(torch.int64)
+    ends = totals.to(torch.int64).cumsum(1)
+    blk = torch.arange(n, device=dev) // spec.layout_chunk
+    win = torch.arange(nwin, device=dev)[:, None]
+    first = (ends - totals).gather(1, mags) + offsets[win, blk, mags]
+    key, perm = torch.sort(blk * (spec.n_buckets + 1) + mags, dim=1,
+                           stable=True)
+    pos = torch.arange(n, device=dev).expand(nwin, n)
+    new = torch.ones_like(key, dtype=torch.bool)
+    new[:, 1:] = key[:, 1:] != key[:, :-1]
+    start = torch.where(new, pos, 0).cummax(1).values
+    dest = first + torch.empty_like(perm).scatter_(1, perm, pos - start)
+    ssgn = torch.empty((nwin, n), dtype=torch.int32, device=dev)
+    ssgn.scatter_(1, dest, (packed < 0).to(torch.int32))
+    order = torch.empty((nwin, n), dtype=torch.int32, device=dev)
+    order.scatter_(1, dest, pos.to(torch.int32))
+    sdig = torch.searchsorted(ends, pos.contiguous(), right=True)
+    return sdig.to(torch.int32), ssgn, order
+
+
+# -- kernel 1: run-emission accumulation --------------------------------------------
 
 
 def accumulate(sdig, ssgn, order, words, spec: CurveSpec):
@@ -188,6 +316,27 @@ def compact(edig, ept, K: int):
     The emissions are taken lane by lane: lane l holds the sorted range
     [l*T, (l+1)*T) and emits its runs in rising digit order, so each
     window's packed digits are non-decreasing."""
+    nwin, T1, PW, L = ept.shape
+    if ept.device.type == "cuda":
+        curve = {spec.PW: name for name, spec in SPECS.items()}.get(PW)
+        if curve is None:
+            raise ValueError(f"no msm_compact kernel for {PW} words")
+        _check(edig, (nwin, T1, L), "edig")
+        _check(ept, (nwin, T1, PW, L), "ept")
+        lanecnt = torch.empty((nwin, L), dtype=torch.int32, device=ept.device)
+        cdig = torch.empty((nwin, K), dtype=torch.int32, device=ept.device)
+        cpts = torch.empty((nwin, PW, K), dtype=torch.int32, device=ept.device)
+        kernels.KERNELS[f"msm_compact_{curve}"](edig, ept, lanecnt, cdig,
+                                                cpts, nwin, T1, L, K)
+        return cdig, cpts
+    if ept.device.type != "cpu":
+        raise ValueError(f"no msm_compact kernel for {ept.device}")
+    return compact_plain(edig, ept, K)
+
+
+def compact_plain(edig, ept, K: int):
+    """Plain torch version of the compaction kernel: flags, a running count
+    and a scatter, each dead emission to slot K (dropped)."""
     nwin, T1, PW, L = ept.shape
     flat = edig.transpose(1, 2).reshape(nwin, L * T1)
     flags = flat > 0
@@ -308,27 +457,56 @@ def weighted_sum_plain(cdig, cpts, spec: CurveSpec):
 
 # -- orchestration ------------------------------------------------------------------
 
+def table_words(rows, spec: CurveSpec):
+    """The (N, AW) int32 words of a table of affine points given as words
+    (returned as they are) or as (N, AF) int64 limbs (converted)."""
+    if rows.dtype == torch.int32:
+        if rows.shape[1:] != (spec.AW,):
+            raise ValueError(f"want (N, {spec.AW}) words, got "
+                             f"{tuple(rows.shape)}")
+        return rows
+    return limbs_to_words(rows)
+
+
 def lane_layout(rows, sc, lanes: int, spec: CurveSpec):
     """Recode and sort each window by |digit|: the accumulation kernel's
-    inputs (sdig, ssgn, order, words) for rows (N, AF) and scalars (N, 16),
-    N = T * lanes. sdig, ssgn and order are (nwin, L, T) views of the
-    sort's (nwin, N) results, lane l owning sorted entries [l*T, (l+1)*T);
-    words is the (N, AW) table of the points, which the kernel reads
-    through order."""
-    N = rows.shape[0]
-    if N % lanes or sc.shape[0] != N:
+    inputs (sdig, ssgn, order, words) for rows (N, AF) limbs or (N, AW)
+    words and scalars (N, 16), N = T * lanes. sdig, ssgn and order are
+    (nwin, L, T) views of the stable sort's (nwin, N) results, lane l
+    owning sorted entries [l*T, (l+1)*T); words is the (N, AW) table of
+    the points, which the kernel reads through order. On the card: the
+    recode, scan and scatter kernels, and words as given."""
+    N = sc.shape[0]
+    if N % lanes or rows.shape[0] != N:
         raise ValueError(f"{N} rows do not fill {lanes} lanes")
+    if sc.device.type == "cuda":
+        shape = (spec.n_windows, lanes, N // lanes)
+        packed, counts = layout_recode(sc, spec)
+        totals = layout_scan(counts)
+        sdig, ssgn, order = layout_scatter(packed, counts, totals, spec)
+        return (sdig.view(shape), ssgn.view(shape), order.view(shape),
+                table_words(rows, spec))
+    if sc.device.type != "cpu":
+        raise ValueError(f"no msm layout kernels for {sc.device}")
+    return lane_layout_plain(rows, sc, lanes, spec)
+
+
+def lane_layout_plain(rows, sc, lanes: int, spec: CurveSpec):
+    """Plain torch version of the layout kernels: `recode`, a stable sort
+    of each window and the gather of the signs."""
+    N = sc.shape[0]
     shape = (spec.n_windows, lanes, N // lanes)
     mags, sgns = recode(sc, spec)
-    sdig, order = torch.sort(mags, dim=1)
+    sdig, order = torch.sort(mags, dim=1, stable=True)
     ssgn = sgns.gather(1, order)
     return (sdig.view(shape), ssgn.view(shape),
-            order.to(torch.int32).view(shape), limbs_to_words(rows))
+            order.to(torch.int32).view(shape), table_words(rows, spec))
 
 
 def msm_rows_async(rows, sc, lanes: int, curve: str = "g1") -> torch.Tensor:
-    """rows (N, AF) affine Montgomery limbs, sc (N, 16) standard-form scalar
-    limbs reduced mod r, N = T * lanes -> (nwin, PR) window-sum limbs.
+    """rows (N, AF) affine Montgomery limbs or their (N, AW) words, sc
+    (N, 16) standard-form scalar limbs reduced mod r, N = T * lanes ->
+    (nwin, PR) window-sum limbs.
 
     Dispatches the whole pipeline without a host wait on the card."""
     spec = SPECS[curve]
