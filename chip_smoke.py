@@ -198,6 +198,7 @@ MSM_KERNELS = tuple(name for name, *_ in KERNEL_ROWS
 # Montgomery product (CIOS over 8 words) takes 8 x (8 + 1 + 8) products,
 # each low and high half: 264 multiplies.
 HBM_BYTES_PER_S = 3.35e12
+SECTOR_BYTES = 32                 # the unit of an L2 / HBM transaction
 INT32_MULS_PER_CLOCK_SM = 64
 MULS_PER_MONT = 264
 # Fq products per complete add (RCB Alg. 7) and per mixed add (Alg. 8): an
@@ -419,6 +420,7 @@ def layout_kernels(name, spec, rows, sc, lanes, mul_rate, tag="") -> tuple:
     call). Returns rows (error, ms, plain ms, bound ms, bound by[, library
     ms]) of the curve's recode and scatter and, at G1, the scan; and the
     layout, the accumulation kernel's inputs."""
+    from infimum_tpu_torch import kernels
     from infimum_tpu_torch.msm import msm as M
 
     reps, c = 10, spec.name
@@ -468,8 +470,12 @@ def layout_kernels(name, spec, rows, sc, lanes, mul_rate, tag="") -> tuple:
                         3, warm=1)[0]
     fn_bound = bound(nbytes(sc, *got), 0, mul_rate)
     N, (nwin, nblk, bins) = sc.shape[0], counts.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    resident = kernels.scatter_blocks_per_sm(c) * sms
     log(f"[{tag}layout] {name} ({c}, {N} entries x {nwin} windows, {nblk} "
-        f"blocks of {spec.layout_chunk} a window, {bins} bins): " + "; ".join(
+        f"blocks of {spec.layout_chunk} a window, {bins} bins; the scatter's"
+        f" {nblk * nwin} blocks, {resident} resident = "
+        f"{nblk * nwin / resident:.2f} waves): " + "; ".join(
             f"{k} {ms:.4f} ms alone (plain {p:.3f}), bound {bounds[k][0]:.4f}"
             f" ({bounds[k][1]}), {bounds[k][0] / ms:.1%} of bound"
             for k, (ms, p) in times.items())
@@ -503,11 +509,15 @@ def compact_kernel(name, spec, edig, ept, lanes, mul_rate, tag="") -> dict:
     nwin, T1, PW, L = ept.shape
     live = int((got[0] > 0).sum())
     least = bound(nbytes(edig, *got) + live * PW * 4, 0, mul_rate)
+    # the floor ept's lane-minor layout sets: a 32-byte sector a live word
+    sectors = live * PW * SECTOR_BYTES
     log(f"[{tag}compact] {name} ({spec.name}, {nwin} windows x {T1} x {L} "
         f"emissions, ept {nbytes(ept) / 1e6:.1f} MB; {live} live, "
         f"{live / edig.numel():.2%}; K {K}): kernel {ms:.4f} ms alone, plain "
         f"{plain_ms:.3f} ms, bound {least[0]:.4f} ({least[1]}), "
-        f"{least[0] / ms:.1%} of bound; equal to plain; card {card_line()}")
+        f"{least[0] / ms:.1%} of bound; the live words' sectors "
+        f"{sectors / 1e6:.1f} MB, floor {sectors / HBM_BYTES_PER_S * 1e3:.4f}"
+        f" ms at the HBM rate; equal to plain; card {card_line()}")
     return {f"msm_compact_{spec.name}": (0, ms, plain_ms, *least)}
 
 
@@ -626,8 +636,9 @@ def steady_prove(pk, cs, witness, publics) -> float:
 
 
 # the device kernels of a traced prove, grouped by the name each contains
-# (the layout's count grid is msm_count_kernel, the compaction's two grids
-# msm_compact_count_kernel and msm_compact_write_kernel)
+# (the layout's count grid is msm_count_kernel, the compaction's three
+# grids msm_compact_count_kernel, msm_compact_list_kernel and
+# msm_compact_gather_kernel)
 TRACE_GROUPS = ("fr_rows", "fr_ntt_tile", "fr_ntt_pass", "fr_pointwise",
                 "msm_accum", "msm_weighted", "msm_recode", "msm_count",
                 "msm_scan", "msm_scatter", "msm_compact")

@@ -21,43 +21,57 @@
 //  2. inf_msm_scan: per window and bin, the exclusive prefix of the counts
 //     over the blocks, in place, and the bin's total: (nwin, bins). A small
 //     launch of its own, a thread a bin.
-//  3. inf_msm_scatter_*: per (block, window): the window's bin offsets (an
-//     exclusive scan of its totals in shared memory), the block's first
-//     slot of each bin, then each entry to that slot plus its rank among
-//     the equal digits before it in the block. Each of 8 warps owns an
-//     eighth of the block's entries and counts them per bin (16-bit
-//     counters, a row a warp); the warps' counts are scanned in warp
-//     order per bin; then each warp walks its entries again, 32 at a
-//     time, ranking with __match_any_sync + __popc of the lower lanes.
-//     So equal digits keep their index order: the sort is stable, and
-//     equals torch.sort(stable=True) and the reference's sort_key_val.
-//     A warp reads its entries once, into registers. ssgn and order are
-//     written at the slots; sdig over the sorted positions of the block's
-//     range, coalesced: each bin starting there marks its first position
-//     in shared memory and a running maximum fills the rest. All three are
-//     (nwin, N) int32 = the (nwin, L, T) lane layout the accumulation
-//     kernel reads.
+//  3. inf_msm_scatter_*: per (block, window): the window's bin offsets
+//     (its totals scanned) and the block's offsets, loaded first. Each of
+//     8 warps owns an eighth of the block's entries, read once into
+//     registers, and counts them per bin by shared atomics (16-bit
+//     counters, the 8 warps' of a bin in one 16-byte vector; a warp's
+//     zeros, the heavy bin, added at once); each bin's first position in
+//     the block (the block's counts scanned over the bins) and the warps'
+//     counts after it in warp order; then each warp walks its entries
+//     again, 32 at a time, ranking each among the equal digits of the
+//     lanes below by ballots (one __ballot_sync a bit of |digit|: the lanes
+//     that agree on every bit are its peers), and stages it at its
+//     block-local sorted position, one word (the packed digit above the
+//     entry's offset in the block). So equal digits keep their index
+//     order: the sort is stable, and equals torch.sort(stable=True) and
+//     the reference's sort_key_val. Then thread j writes the j-th staged
+//     entry's order and sign to its bin's first slot of the block plus j
+//     less the bin's first position there: a bin's run in the block goes
+//     to consecutive slots from consecutive threads. sdig over the sorted
+//     positions of the block's range, coalesced: each bin starting there
+//     marks its first position in shared memory and a running maximum
+//     fills the rest. All three are (nwin, N) int32 = the (nwin, L, T) lane
+//     layout the accumulation kernel reads.
 //  4. inf_msm_compact_*: per window, the live emissions (digit > 0) lane by
 //     lane, t rising inside a lane, each to the next of K slots: cdig
 //     (nwin, K) and cpts (nwin, PW, K), the slots above the live ones
-//     zeroed. A first grid counts each lane's live emissions (a thread a
-//     lane, adjacent lanes adjacent words); the second takes its block's
-//     first slot from the lanes before it and its lanes' slots by a block
-//     scan, then copies only the live emissions' PW words (L words apart
-//     in ept) and zeroes its share of the slots above the live ones. No
-//     permuted copy of ept is made.
+//     zeroed. Slots first, words after, in three grids: the count (a
+//     thread a lane, adjacent lanes adjacent words) of each lane's live
+//     emissions; the list (a thread a lane: its first slot from the lane
+//     counts before it, then its walk of its emissions, writing each live
+//     one's digit to cdig and its source (t, l) to a slot list in the
+//     wrapper's scratch); the gather (a thread a (window, slot): its PW
+//     words of ept, L words apart, all loads in flight, each store
+//     coalesced across the warp). No permuted copy of ept is made.
 //
-// Grids: the recode a thread a scalar; the count and the scatter a block a
-// (block of entries, window), 360 blocks at the `a` query (143,360 rows,
-// kChunkG1 = 8,192: 18 blocks a window) and 910 at `b2`; the scan a
-// thread a (window, bin); the compaction a block of 256 lanes a window
-// (320 blocks at `a`, 208 at `b2`). The chunk sizes the counts array,
+// Grids: the recode a thread a scalar; the count and the scatter a block
+// a (block of entries, window), 360 blocks at the `a` query (143,360
+// rows, kChunkG1 = 8,192: 18 blocks a window) and 910 at `b2`, the
+// scatter two blocks an SM at G1 (114,720 bytes of shared memory each);
+// the scan a thread a (window, bin); the compaction's count and list a
+// block of 256 lanes a window (320 blocks at `a`), its gather a block of
+// 256 slots a window (660 at `a`). The chunk sizes the counts array,
 // (nwin, nblk, bins) int32: 5.9 MB at `a`.
 //
 // What bounds it, on an H100: bytes. No field product is done. The
-// scatter's slot writes land 4 bytes at a time wherever the digit sends
-// them, so its stores are the least coalesced; the layout's outputs
-// (34 MB at `a`) fit in the 50 MB L2, which merges them.
+// scatter's slot writes go wherever the digits send them; staged in
+// sorted order, a bin's run in a block is stored by consecutive threads
+// (about 2 entries a bin a block at G1, 8 at G2), and blocks in launch
+// order write adjacent runs of a bin, which the 50 MB L2 merges before
+// they reach memory. The compaction's reads of a live emission's words
+// are a 32-byte sector each (ept is lane-minor: 24 sectors an emission
+// at G1, 48 at G2), its floor; the gather keeps them all in flight.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
@@ -70,6 +84,7 @@ constexpr int kScanThreads = 256;
 constexpr int kScatterWarps = 8;
 constexpr int kScatterThreads = 32 * kScatterWarps;
 constexpr int kCompactThreads = 256;
+constexpr int kListBatch = 8;  // the compaction's list: loads a lane in flight
 // entries a block of the count and scatter grids, per curve
 constexpr int kChunkG1 = 8192;
 constexpr int kChunkG2 = 4096;
@@ -263,10 +278,43 @@ msm_scan_kernel(int32_t* __restrict__ counts, int32_t* __restrict__ totals,
 
 // -- 3. stable scatter --------------------------------------------------------
 
+// The lanes of the warp whose d equals this lane's, from one ballot a bit
+// of d (d < 2^Bits; the end sentinel kBins fits): the AND of the ballots
+// the lane agrees with.
+template <int Bits>
+__device__ __forceinline__ unsigned ballot_peers(int d) {
+  unsigned m = ~0u;
+#pragma unroll
+  for (int b = 0; b < Bits; ++b) {
+    const unsigned v = __ballot_sync(~0u, (d >> b) & 1);
+    m &= (d >> b) & 1 ? v : ~v;
+  }
+  return m;
+}
+
+// A counters word of two warps -> each warp's first position in the bin
+// from `run`, which moves past both.
+__device__ __forceinline__ uint32_t scan_pair(uint32_t w, uint32_t& run) {
+  const uint32_t a = w & 0xffff, out = run | (run + a) << 16;
+  run += a + (w >> 16);
+  return out;
+}
+
+// Shared memory a block: the counters (kScatterWarps 16-bit a bin, a
+// bin's in one 16-byte vector), the window's bin offsets (B + 1 int32,
+// padded to 16 bytes) and the staged chunk (a word an entry). G1: 65,552
+// + 16,400 + 32,768 = 114,720 bytes, two blocks an SM; G2: 8,208 + 2,064
+// + 16,384.
+template <class P>
+__host__ __device__ constexpr int base_words() {
+  return (P::kBins + 1 + 3) & ~3;
+}
+
 template <class P>
 constexpr size_t scatter_smem() {
-  return (2 * P::kBins + 1) * sizeof(int32_t) +
-         (size_t)kScatterWarps * P::kBins * sizeof(uint16_t);
+  return (size_t)P::kBins * kScatterWarps * sizeof(uint16_t) +
+         base_words<P>() * sizeof(int32_t) +
+         (size_t)P::kChunk * sizeof(uint32_t);
 }
 
 template <class P>
@@ -277,102 +325,153 @@ msm_scatter_kernel(const uint16_t* __restrict__ packed,
                    int32_t* __restrict__ sdig, int32_t* __restrict__ ssgn,
                    int32_t* __restrict__ order, int n, int nblk) {
   constexpr int B = P::kBins, NW = kScatterWarps, NT = kScatterThreads;
-  constexpr int kPerWarp = P::kChunk / NW;
-  static_assert((NW * B) % 2 == 0, "counters zeroed as 32-bit pairs");
-  static_assert((NW * B * sizeof(uint16_t)) % 16 == 0, "aligned after");
+  constexpr int C = P::kChunk, kPerWarp = C / NW, kIters = kPerWarp / 32;
+  constexpr int kRun = (B + NT - 1) / NT;  // bins a thread
+  static_assert(NW == 8, "a bin's counters are one 16-byte vector");
+  static_assert(kRun % 2 == 1, "odd runs: a quarter warp's vectors apart");
+  static_assert(C <= 32768, "block-local positions and offsets in 16 bits");
+  static_assert((C / NT) % 8 == 0, "a thread's marks in 16-byte vectors");
   extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* wcount = reinterpret_cast<uint16_t*>(smem);    // NW x B
-  int32_t* base = reinterpret_cast<int32_t*>(wcount + NW * B);  // B + 1
-  int32_t* first = base + B + 1;                           // B
+  uint16_t* cnt = reinterpret_cast<uint16_t*>(smem);            // B x NW
+  uint32_t* cnt32 = reinterpret_cast<uint32_t*>(smem);
+  uint4* cnt4 = reinterpret_cast<uint4*>(smem);                 // B
+  int32_t* base = reinterpret_cast<int32_t*>(cnt + B * NW);     // B + 1
+  uint32_t* stage =
+      reinterpret_cast<uint32_t*>(base + base_words<P>());      // C
   __shared__ int32_t warp_sums[NW];
   const int blk = blockIdx.x, win = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1;
   const size_t row = (size_t)win * n;
 
-  // the window's bin offsets
+  // loads first: the window's totals and this block's offsets, bin
+  // tid + k NT for the k-th, and each warp's eighth of the block's
+  // entries, lane l holding entries lo + 32 j + l, digit B past the end
   const int32_t* tot = totals + (size_t)win * B;
-  for (int b = threadIdx.x; b < B; b += NT) base[b] = tot[b];
-  uint32_t* wc32 = reinterpret_cast<uint32_t*>(wcount);
-  for (int k = threadIdx.x; k < NW * B / 2; k += NT) wc32[k] = 0;
-  __syncthreads();
-  smem_exclusive_scan<NT>(base, B, warp_sums);
-
-  // each warp's entries, read once into registers: lane l holds entries
-  // lo + 32 j + l, digit B past the end
-  constexpr int kIters = kPerWarp / 32;
+  const int32_t* off = offsets + ((size_t)win * nblk + blk) * B;
+  int32_t offr[kRun], totr[kRun];
+#pragma unroll
+  for (int k = 0; k < kRun; ++k) {
+    const int b = threadIdx.x + k * NT;
+    totr[k] = b < B ? tot[b] : 0;
+    offr[k] = b < B ? off[b] : 0;
+  }
+  const int b_lo = blk * C, b_hi = min(n, b_lo + C);
+  const int lo = b_lo + warp * kPerWarp, hi = min(n, lo + kPerWarp);
   const uint16_t* dig = packed + row;
-  const int lo = blk * P::kChunk + warp * kPerWarp;
-  const int hi = min(n, lo + kPerWarp);
   uint32_t pk[kIters];
 #pragma unroll
   for (int j = 0; j < kIters; ++j) {
     const int i = lo + 32 * j + lane;
     pk[j] = i < hi ? dig[i] : B;
   }
+  for (int b = threadIdx.x; b < B; b += NT) cnt4[b] = make_uint4(0, 0, 0, 0);
+#pragma unroll
+  for (int k = 0; k < kRun; ++k)
+    if (threadIdx.x + k * NT < B) base[threadIdx.x + k * NT] = totr[k];
+  __syncthreads();
+  // the window's bin offsets: its totals scanned
+  smem_exclusive_scan<NT>(base, B, warp_sums);
 
-  // each warp's entries per bin
-  uint16_t* mine = wcount + warp * B;
+  // each warp's entries per bin: its counter's half of the pair's word,
+  // by shared atomics; a warp's zeros (the heavy bin) at once
+  const uint32_t one = 1u << 16 * (warp & 1);
 #pragma unroll
   for (int j = 0; j < kIters; ++j) {
     if (lo + 32 * j >= hi) break;  // uniform over the warp
     const int d = pk[j] & 0x7fff;
-    const unsigned m = __match_any_sync(~0u, d);
-    if (d < B && lane == __ffs(m) - 1) mine[d] += (uint16_t)__popc(m);
-    __syncwarp();
+    const unsigned zeros = __ballot_sync(~0u, d == 0);
+    if (d > 0 && d < B) atomicAdd(&cnt32[d * (NW / 2) + (warp >> 1)], one);
+    if (lane == 0 && zeros) atomicAdd(&cnt32[warp >> 1], one * __popc(zeros));
   }
   __syncthreads();
 
-  // per bin: the warps' offsets in warp order, the block's first slot
-  const int32_t* off = offsets + ((size_t)win * nblk + blk) * B;
-  for (int b = threadIdx.x; b < B; b += NT) {
-    uint16_t run = 0;
-#pragma unroll
-    for (int k = 0; k < NW; ++k) {
-      const uint16_t v = wcount[k * B + b];
-      wcount[k * B + b] = run;
-      run += v;
+  // per bin, its first position in the block (the block's counts scanned
+  // over the bins), then the warps' counts in warp order from it: each
+  // thread a run of kRun bins, summed, scanned, written back
+  {
+    const int q0 = min(B, (int)threadIdx.x * kRun), q1 = min(B, q0 + kRun);
+    int32_t sum = 0;
+    for (int b = q0; b < q1; ++b) {
+      const uint4 v = cnt4[b];
+      const uint32_t x = v.x + v.y + v.z + v.w;  // no carry: 4 x 1024
+      sum += (int32_t)((x & 0xffff) + (x >> 16));
     }
-    first[b] = base[b] + off[b];
+    int32_t unused;
+    uint32_t run = (uint32_t)block_exclusive<NT>(sum, warp_sums, unused);
+    for (int b = q0; b < q1; ++b) {
+      uint4 v = cnt4[b];
+      v.x = scan_pair(v.x, run);
+      v.y = scan_pair(v.y, run);
+      v.z = scan_pair(v.z, run);
+      v.w = scan_pair(v.w, run);
+      cnt4[b] = v;
+    }
   }
   __syncthreads();
 
-  // each entry to its slot, 32 at a time in index order
+  // each entry to its block-local sorted position, 32 at a time in index
+  // order, ranked by the ballots: one word, the packed digit above the
+  // entry's offset in the block
 #pragma unroll
   for (int j = 0; j < kIters; ++j) {
     if (lo + 32 * j >= hi) break;
-    const int p = pk[j], d = p & 0x7fff;
-    const unsigned m = __match_any_sync(~0u, d);
-    if (d < B) {
-      const int dest = first[d] + mine[d] + __popc(m & ((1u << lane) - 1));
-      order[row + dest] = lo + 32 * j + lane;
-      ssgn[row + dest] = p >> 15;
-    }
+    const uint32_t p = pk[j];
+    const int d = p & 0x7fff;
+    const unsigned m = ballot_peers<P::kBits>(d);
+    uint16_t* c = cnt + min(d, B - 1) * NW + warp;
+    if (d < B)
+      stage[*c + __popc(m & below)] =
+          p << 16 | (uint32_t)(warp * kPerWarp + 32 * j + lane);
     __syncwarp();
-    if (d < B && lane == __ffs(m) - 1) mine[d] += (uint16_t)__popc(m);
+    if (d < B && !(m & below)) *c += (uint16_t)__popc(m);
     __syncwarp();
   }
   __syncthreads();
 
-  // the digits of the sorted positions [s_lo, s_hi) of this block's range:
-  // each non-empty bin that starts there marks its first position (the
-  // counters' memory, done with), then a running maximum over the
-  // positions, from the bin that holds s_lo, fills the rest
-  const int s_lo = blk * P::kChunk, s_hi = min(n, s_lo + P::kChunk);
-  uint16_t* mark = wcount;
-  constexpr int kPer = P::kChunk / NT;  // positions a thread
-  static_assert(kPer % 8 == 0 && P::kChunk <= NW * B, "marks in counters");
-  uint4* mark4 = reinterpret_cast<uint4*>(mark);
-  for (int k = threadIdx.x; k < P::kChunk / 8; k += NT)
+  // per bin, the window slot of its first entry in this block less its
+  // block-local position, over its first two counters (the last warp's
+  // counter of bin b - 1 now holds bin b's first position)
+  int32_t* delta = reinterpret_cast<int32_t*>(smem);  // bin b: b * NW / 2
+#pragma unroll
+  for (int k = 0; k < kRun; ++k) {
+    const int b = threadIdx.x + k * NT;
+    if (b >= B) break;
+    const int32_t start = b ? cnt[b * NW - 1] : 0;
+    delta[b * (NW / 2)] = base[b] + offr[k] - start;
+  }
+  __syncthreads();
+
+  // the staged entries in order: thread j the j-th, so a bin's run in the
+  // block goes to consecutive slots from consecutive threads
+#pragma unroll 4
+  for (int j = threadIdx.x; j < b_hi - b_lo; j += NT) {
+    const uint32_t w = stage[j];
+    const int32_t dest = j + delta[((w >> 16) & 0x7fff) * (NW / 2)];
+    order[row + dest] = b_lo + (int32_t)(w & 0xffff);
+    ssgn[row + dest] = (int32_t)(w >> 31);
+  }
+  __syncthreads();
+
+  // the digits of the sorted positions [b_lo, b_hi) of this block's
+  // range: each non-empty bin that starts there marks its first position
+  // (over the staged words, done with), then a running maximum over the
+  // positions, from the bin that holds b_lo, fills the rest
+  uint16_t* mark = reinterpret_cast<uint16_t*>(stage);
+  uint4* mark4 = reinterpret_cast<uint4*>(stage);
+  constexpr int kPer = C / NT;  // positions a thread
+  for (int k = threadIdx.x; k < C / 8; k += NT)
     mark4[k] = make_uint4(0, 0, 0, 0);
   __syncthreads();
   for (int b = threadIdx.x; b < B; b += NT) {
     const int s = base[b];
-    if (s >= s_lo && s < s_hi && base[b + 1] > s) mark[s - s_lo] = (uint16_t)b;
+    if (s >= b_lo && s < b_hi && base[b + 1] > s)
+      mark[s - b_lo] = (uint16_t)b;
   }
-  int a = 0, z = B;  // base[a] <= s_lo < base[z]
+  int a = 0, z = B;  // base[a] <= b_lo < base[z]
   while (z - a > 1) {
     const int mid = (a + z) >> 1;
-    if (base[mid] <= s_lo) a = mid; else z = mid;
+    if (base[mid] <= b_lo) a = mid; else z = mid;
   }
   __syncthreads();
   uint4 v[kPer / 8];
@@ -394,8 +493,28 @@ msm_scatter_kernel(const uint16_t* __restrict__ packed,
 #pragma unroll
   for (int q = 0; q < kPer / 8; ++q) mark4[threadIdx.x * (kPer / 8) + q] = v[q];
   __syncthreads();
-  for (int k = threadIdx.x; k < s_hi - s_lo; k += NT)
-    sdig[row + s_lo + k] = mark[k];
+  for (int k = threadIdx.x; k < b_hi - b_lo; k += NT)
+    sdig[row + b_lo + k] = mark[k];
+}
+
+// (threads, resident blocks an SM on the current card) of a scatter
+// instance, its shared memory allowed first; -1 blocks on a failure
+template <class P>
+int scatter_blocks_per_sm() {
+  constexpr size_t smem = scatter_smem<P>();
+  if (cudaFuncSetAttribute(msm_scatter_kernel<P>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cudaFuncSetAttribute(msm_scatter_kernel<P>,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared) != cudaSuccess)
+    return -1;
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, msm_scatter_kernel<P>, kScatterThreads, smem) !=
+      cudaSuccess)
+    return -1;
+  return per_sm;
 }
 
 template <class P>
@@ -405,13 +524,12 @@ int launch_scatter(const void* packed, const void* offsets, const void* totals,
   if (n < 0 || nblk != (n + P::kChunk - 1) / P::kChunk)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  constexpr size_t smem = scatter_smem<P>();
-  const cudaError_t err = cudaFuncSetAttribute(
-      msm_scatter_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  msm_scatter_kernel<P><<<dim3(nblk, P::kCount), kScatterThreads, smem,
-                          (cudaStream_t)stream>>>(
+  if (scatter_blocks_per_sm<P>() < 1) {
+    const cudaError_t err = cudaGetLastError();
+    return err != cudaSuccess ? (int)err : (int)cudaErrorInvalidConfiguration;
+  }
+  msm_scatter_kernel<P><<<dim3(nblk, P::kCount), kScatterThreads,
+                          scatter_smem<P>(), (cudaStream_t)stream>>>(
       (const uint16_t*)packed, (const int32_t*)offsets,
       (const int32_t*)totals, (int32_t*)sdig, (int32_t*)ssgn,
       (int32_t*)order, n, nblk);
@@ -420,6 +538,7 @@ int launch_scatter(const void* packed, const void* offsets, const void* totals,
 
 // -- 4. compaction ------------------------------------------------------------
 
+// the count grid: a thread a lane, its live emissions
 __global__ void __launch_bounds__(kCompactThreads)
 msm_compact_count_kernel(const int32_t* __restrict__ edig,
                          int32_t* __restrict__ lanecnt, int T1, int L) {
@@ -432,13 +551,18 @@ msm_compact_count_kernel(const int32_t* __restrict__ edig,
   lanecnt[(size_t)win * L + l] = c;
 }
 
-template <int PW>
+// the list grid: a thread a lane, a block of kCompactThreads lanes a
+// window. The block's first slot is the sum of the lane counts before it,
+// its lanes' first slots a block scan of theirs; each live lane walks its
+// emissions, t rising, kListBatch loads in flight, writing each live
+// one's digit to cdig and its source t L + l to the slot list. The block
+// then gives its share of the slots above the window's live ones digit 0
+// and source -1.
 __global__ void __launch_bounds__(kCompactThreads)
-msm_compact_write_kernel(const int32_t* __restrict__ edig,
-                         const int32_t* __restrict__ ept,
-                         const int32_t* __restrict__ lanecnt,
-                         int32_t* __restrict__ cdig, int32_t* __restrict__ cpts,
-                         int T1, int L, int K) {
+msm_compact_list_kernel(const int32_t* __restrict__ edig,
+                        const int32_t* __restrict__ lanecnt,
+                        int32_t* __restrict__ cdig, int32_t* __restrict__ list,
+                        int T1, int L, int K) {
   constexpr int NT = kCompactThreads;
   __shared__ int32_t warp_sums[NT / 32];
   const int win = blockIdx.y, l0 = blockIdx.x * NT, l = l0 + threadIdx.x;
@@ -451,53 +575,87 @@ msm_compact_write_kernel(const int32_t* __restrict__ edig,
   }
   block_exclusive<NT>(before, warp_sums, before);
   block_exclusive<NT>(all, warp_sums, all);
+  const int32_t c = l < L ? lc[l] : 0;
   int32_t unused;
-  int32_t slot = before + block_exclusive<NT>(l < L ? lc[l] : 0, warp_sums,
-                                              unused);
+  int32_t slot = before + block_exclusive<NT>(c, warp_sums, unused);
   int32_t* cd = cdig + (size_t)win * K;
-  int32_t* cp = cpts + (size_t)win * PW * K;
-  if (l < L) {
+  int32_t* ls = list + (size_t)win * K;
+  if (c > 0) {
     const int32_t* e = edig + (size_t)win * T1 * L + l;
-    const int32_t* p = ept + (size_t)win * T1 * PW * L + l;
-    for (int t = 0; t < T1; ++t) {
-      const int32_t d = __ldg(e + (size_t)t * L);
-      if (d <= 0) continue;
-      if (slot < K) {
-        cd[slot] = d;
-        const int32_t* src = p + (size_t)t * PW * L;
+    for (int t0 = 0; t0 < T1; t0 += kListBatch) {
+      int32_t d[kListBatch];
 #pragma unroll
-        for (int k = 0; k < PW; ++k)
-          cp[(size_t)k * K + slot] = __ldg(src + (size_t)k * L);
+      for (int u = 0; u < kListBatch; ++u)
+        d[u] = t0 + u < T1 ? __ldg(e + (size_t)(t0 + u) * L) : 0;
+#pragma unroll
+      for (int u = 0; u < kListBatch; ++u) {
+        if (d[u] <= 0) continue;
+        if (slot < K) {
+          cd[slot] = d[u];
+          ls[slot] = (t0 + u) * L + l;
+        }
+        ++slot;
       }
-      ++slot;
     }
   }
-  // this block's share of the slots above the live ones
   const int live = min(all, K);
   const int per = (K - live + gridDim.x - 1) / gridDim.x;
   const int z0 = live + blockIdx.x * per, z1 = min(K, z0 + per);
   for (int s = z0 + threadIdx.x; s < z1; s += NT) {
     cd[s] = 0;
-#pragma unroll
-    for (int k = 0; k < PW; ++k) cp[(size_t)k * K + s] = 0;
+    ls[s] = -1;
   }
 }
 
+// the gather grid: a thread a (window, slot), consecutive slots in
+// consecutive threads; its PW loads of ept are independent (all in
+// flight), and each of its PW stores is coalesced across the warp
 template <int PW>
-int launch_compact(const void* edig, const void* ept, void* lanecnt,
+__global__ void __launch_bounds__(kCompactThreads)
+msm_compact_gather_kernel(const int32_t* __restrict__ ept,
+                          const int32_t* __restrict__ list,
+                          int32_t* __restrict__ cpts, int T1, int L, int K) {
+  const int s = blockIdx.x * kCompactThreads + threadIdx.x, win = blockIdx.y;
+  if (s >= K) return;
+  const int32_t at = __ldg(list + (size_t)win * K + s);
+  int32_t* out = cpts + (size_t)win * PW * K + s;
+  if (at < 0) {
+#pragma unroll
+    for (int k = 0; k < PW; ++k) out[(size_t)k * K] = 0;
+    return;
+  }
+  const int t = at / L, l = at - t * L;
+  const int32_t* src = ept + ((size_t)win * T1 + t) * PW * L + l;
+  int32_t v[PW];
+#pragma unroll
+  for (int k = 0; k < PW; ++k) v[k] = __ldg(src + (size_t)k * L);
+#pragma unroll
+  for (int k = 0; k < PW; ++k) out[(size_t)k * K] = v[k];
+}
+
+template <int PW>
+int launch_compact(const void* edig, const void* ept, void* scratch,
                    void* cdig, void* cpts, int nwin, int T1, int L, int K,
                    void* stream) {
-  if (nwin < 0 || T1 < 1 || L < 1 || K < 1) return (int)cudaErrorInvalidValue;
+  if (nwin < 0 || T1 < 1 || L < 1 || K < 1 || (long long)T1 * L > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
   if (nwin == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  const dim3 grid((L + kCompactThreads - 1) / kCompactThreads, nwin);
-  msm_compact_count_kernel<<<grid, kCompactThreads, 0, s>>>(
-      (const int32_t*)edig, (int32_t*)lanecnt, T1, L);
-  const cudaError_t err = cudaGetLastError();
+  int32_t* lanecnt = (int32_t*)scratch;
+  int32_t* list = lanecnt + (size_t)nwin * L;
+  const dim3 lanes((L + kCompactThreads - 1) / kCompactThreads, nwin);
+  msm_compact_count_kernel<<<lanes, kCompactThreads, 0, s>>>(
+      (const int32_t*)edig, lanecnt, T1, L);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  msm_compact_write_kernel<PW><<<grid, kCompactThreads, 0, s>>>(
-      (const int32_t*)edig, (const int32_t*)ept, (const int32_t*)lanecnt,
-      (int32_t*)cdig, (int32_t*)cpts, T1, L, K);
+  msm_compact_list_kernel<<<lanes, kCompactThreads, 0, s>>>(
+      (const int32_t*)edig, lanecnt, (int32_t*)cdig, list, T1, L, K);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  msm_compact_gather_kernel<PW>
+      <<<dim3((K + kCompactThreads - 1) / kCompactThreads, nwin),
+         kCompactThreads, 0, s>>>((const int32_t*)ept, list, (int32_t*)cpts,
+                                  T1, L, K);
   return (int)cudaGetLastError();
 }
 
@@ -546,20 +704,31 @@ extern "C" int inf_msm_scatter_g2(const void* packed, const void* offsets,
                                              ssgn, order, n, nblk, stream);
 }
 
-// edig (nwin, T1, L), ept (nwin, T1, PW, L) int32, scratch lanecnt (nwin, L)
-// -> cdig (nwin, K), cpts (nwin, PW, K)
+// edig (nwin, T1, L), ept (nwin, T1, PW, L) int32, scratch (nwin, L + K)
+// int32 (the lane counts, then the slot list) -> cdig (nwin, K), cpts
+// (nwin, PW, K)
 extern "C" int inf_msm_compact_g1(const void* edig, const void* ept,
-                                  void* lanecnt, void* cdig, void* cpts,
+                                  void* scratch, void* cdig, void* cpts,
                                   int nwin, int T1, int L, int K,
                                   void* stream) {
-  return inf::launch_compact<24>(edig, ept, lanecnt, cdig, cpts, nwin, T1, L,
+  return inf::launch_compact<24>(edig, ept, scratch, cdig, cpts, nwin, T1, L,
                                  K, stream);
 }
 
 extern "C" int inf_msm_compact_g2(const void* edig, const void* ept,
-                                  void* lanecnt, void* cdig, void* cpts,
+                                  void* scratch, void* cdig, void* cpts,
                                   int nwin, int T1, int L, int K,
                                   void* stream) {
-  return inf::launch_compact<48>(edig, ept, lanecnt, cdig, cpts, nwin, T1, L,
+  return inf::launch_compact<48>(edig, ept, scratch, cdig, cpts, nwin, T1, L,
                                  K, stream);
+}
+
+// resident blocks an SM of the scatter instance for each curve on the
+// current card (-1 on a failure)
+extern "C" int inf_msm_scatter_blocks_per_sm_g1() {
+  return inf::scatter_blocks_per_sm<inf::WindowsG1>();
+}
+
+extern "C" int inf_msm_scatter_blocks_per_sm_g2() {
+  return inf::scatter_blocks_per_sm<inf::WindowsG2>();
 }

@@ -207,6 +207,13 @@ def accum_occupancy(curve: str) -> tuple[int, int]:
             query(f"inf_msm_accum_blocks_per_sm_{curve}"))
 
 
+def scatter_blocks_per_sm(curve: str) -> int:
+    """Resident blocks an SM of the MSM layout's scatter instance for
+    `curve` on the current card (CUDA's occupancy calculator, its shared
+    memory allowed)."""
+    return query(f"inf_msm_scatter_blocks_per_sm_{curve}")
+
+
 def perm_main_variant() -> int:
     """The Poseidon kernel's main instance as `inf_poseidon_perm_variant`
     numbers its variants (bit 0: product out of line; bit 1: tables in

@@ -323,10 +323,13 @@ def compact(edig, ept, K: int):
             raise ValueError(f"no msm_compact kernel for {PW} words")
         _check(edig, (nwin, T1, L), "edig")
         _check(ept, (nwin, T1, PW, L), "ept")
-        lanecnt = torch.empty((nwin, L), dtype=torch.int32, device=ept.device)
+        # the lane counts, then the slot list: each live slot's source
+        # t * L + l, -1 above the live ones
+        scratch = torch.empty(nwin * (L + K), dtype=torch.int32,
+                              device=ept.device)
         cdig = torch.empty((nwin, K), dtype=torch.int32, device=ept.device)
         cpts = torch.empty((nwin, PW, K), dtype=torch.int32, device=ept.device)
-        kernels.KERNELS[f"msm_compact_{curve}"](edig, ept, lanecnt, cdig,
+        kernels.KERNELS[f"msm_compact_{curve}"](edig, ept, scratch, cdig,
                                                 cpts, nwin, T1, L, K)
         return cdig, cpts
     if ept.device.type != "cpu":

@@ -125,48 +125,85 @@ def test_plain_layout_matches_reference_sort(curve, case):
         assert ((mags == spec.n_buckets - 1) & (sgns == 1)).any()
 
 
-def _emulated_scatter(packed, offsets, totals, spec):
-    """The scatter kernel's arithmetic walked as the card runs it: per
-    (block, window), each of SCATTER_WARPS warps counts its range per bin,
-    the warps' counts are scanned in warp order, then each warp takes its
-    entries 32 at a time, an entry's rank the lanes below it with its digit
-    (__match_any_sync + __popc) plus its warp's running count; the digits
-    of the block's range of sorted positions are the marks of the bins
-    starting there, filled by a running maximum from the bin holding the
-    range's first position."""
+LANES = np.arange(32, dtype=np.uint64)
+BELOW = (np.uint64(1) << LANES) - np.uint64(1)     # each lane's lower lanes
+FULL = np.uint64(0xFFFFFFFF)
+
+
+def _ballot_peers(d, bits):
+    """The scatter's rank by ballots for one warp of 32 digits (d <
+    2^bits): one ballot a bit (the lanes whose bit is set), each lane's
+    peers the AND of the ballots it agrees with -> (32,) uint64 masks."""
+    m = np.full(32, FULL, np.uint64)
+    for b in range(bits):
+        on = ((d >> b) & 1).astype(bool)
+        v = np.uint64(int((on.astype(np.uint64) << LANES).sum()))
+        m &= np.where(on, v, ~v & FULL)
+    return m
+
+
+def _emulated_scatter(packed, offsets, totals, spec, staged=None):
+    """The scatter kernel's arithmetic walked as the card runs it, block by
+    block (window, block of entries): each of SCATTER_WARPS warps counts
+    its range per bin (shared atomics: the order of the adds is free);
+    each bin's first position in the block is the block's counts scanned
+    over the bins, and each warp's that plus the counts of the warps
+    before it; each warp then stages its entries, 32 at a time, at its
+    position of their bin plus their rank (their peers in lower lanes,
+    `_ballot_peers`), a word of the packed digit above the entry's offset
+    in the block, the lowest lane of each digit moving the warp's
+    position on by its peers; staged entry j goes to slot j + delta[bin],
+    delta the bin's first slot in this block (its window offset plus the
+    block's offset in it) less its first block-local position. The
+    digits of the block's range of sorted positions are the marks of the
+    bins starting there, filled by a running maximum from the bin holding
+    the range's first position. `staged` collects (window, block, staged
+    words) of each block."""
     nwin, n = packed.shape
     chunk, nw, bins = spec.layout_chunk, M.SCATTER_WARPS, spec.n_buckets + 1
     per_warp = chunk // nw
-    mags = (packed.numpy().astype(np.int64) & 0x7FFF)
-    sgn = (packed.numpy() < 0).astype(np.int32)
+    pk = packed.numpy().astype(np.int64) & 0xFFFF
+    mags = pk & 0x7FFF
     tot = totals.numpy().astype(np.int64)
     base = np.cumsum(tot, 1) - tot
     out = np.full((3, nwin, n), -1, dtype=np.int64)
     for w in range(nwin):
         for b in range(-(-n // chunk)):
-            ranges = [(min(n, b * chunk + k * per_warp),
-                       min(n, b * chunk + (k + 1) * per_warp))
-                      for k in range(nw)]
-            counts = np.stack([np.bincount(mags[w, lo:hi], minlength=bins)
-                               for lo, hi in ranges])
-            running = np.cumsum(counts, 0) - counts       # warps in order
-            first = base[w] + offsets[w, b].numpy()
-            for k, (lo, hi) in enumerate(ranges):
+            b_lo, b_hi = b * chunk, min(n, (b + 1) * chunk)
+            cnt = np.zeros((nw, bins), np.int64)
+            groups = []
+            for k in range(nw):
+                lo, hi = b_lo + k * per_warp, min(n, b_lo + (k + 1) * per_warp)
+                cnt[k] = np.bincount(mags[w, lo:hi], minlength=bins)
                 for g in range(lo, hi, 32):
-                    d = mags[w, g:min(hi, g + 32)]
-                    lower = (d[None, :] == d[:, None]) & np.tri(
-                        len(d), k=-1, dtype=bool)
-                    dest = first[d] + running[k, d] + lower.sum(1)
-                    out[1, w, dest] = sgn[w, g:g + len(d)]
-                    out[2, w, dest] = np.arange(g, g + len(d))
-                    np.add.at(running[k], d, 1)
-            s_lo, s_hi = b * chunk, min(n, (b + 1) * chunk)
-            starts = (base[w] >= s_lo) & (base[w] < s_hi) & (tot[w] > 0)
+                    d = np.full(32, bins, np.int64)          # the end sentinel
+                    d[:min(hi, g + 32) - g] = mags[w, g:min(hi, g + 32)]
+                    groups.append((k, g, d, _ballot_peers(d, spec.c_bits)))
+            total = cnt.sum(0)
+            start = np.cumsum(total) - total   # bins' first block positions
+            pos = start + np.cumsum(cnt, 0) - cnt          # each warp's
+            stage = np.full(b_hi - b_lo, -1, np.int64)
+            for k, g, d, m in groups:
+                real = d < bins
+                idx = np.arange(g, g + 32)[real]
+                at = pos[k, d[real]] + np.bitwise_count(m & BELOW)[real]
+                stage[at] = (pk[w, idx] << 16) | (idx - b_lo)
+                lead = real & ((m & BELOW) == 0)
+                np.add.at(pos[k], d[lead], np.bitwise_count(m[lead]))
+            assert (stage >= 0).all()             # every position staged
+            assert (pos[-1] == start + total).all()
+            if staged is not None:
+                staged.append((w, b, stage))
+            delta = base[w] + offsets[w, b].numpy() - start
+            dest = np.arange(b_hi - b_lo) + delta[(stage >> 16) & 0x7FFF]
+            out[1, w, dest] = stage >> 31
+            out[2, w, dest] = b_lo + (stage & 0xFFFF)
+            starts = (base[w] >= b_lo) & (base[w] < b_hi) & (tot[w] > 0)
             mark = np.zeros(chunk, np.int64)
-            mark[base[w][starts] - s_lo] = np.nonzero(starts)[0]
-            held = np.searchsorted(base[w], s_lo, side="right") - 1
-            out[0, w, s_lo:s_hi] = np.maximum.accumulate(
-                np.maximum(mark, held))[:s_hi - s_lo]
+            mark[base[w][starts] - b_lo] = np.nonzero(starts)[0]
+            held = np.searchsorted(base[w], b_lo, side="right") - 1
+            out[0, w, b_lo:b_hi] = np.maximum.accumulate(
+                np.maximum(mark, held))[:b_hi - b_lo]
     assert (out >= 0).all()               # every slot written
     return [torch.from_numpy(o.astype(np.int32)) for o in out]
 
@@ -243,33 +280,43 @@ COMPACT_THREADS = 256       # = kCompactThreads, msm_layout.cu
 
 
 def _compact_model(edig, ept, K):
-    """The compaction kernel's arithmetic: the first grid counts each lane's
-    live emissions; a block of the second takes its first slot from the
-    lanes before it, its lanes' slots by an exclusive scan, copies each
-    lane's live emissions in t order, and zeroes its share of the slots
-    above the window's live ones."""
+    """The compaction kernel's arithmetic, grid by grid: the count grid's
+    live emissions a lane; the list grid's block of COMPACT_THREADS lanes
+    takes its first slot from the lane counts before it and its lanes'
+    slots by an exclusive scan, each live lane's emissions, t rising, to
+    the next slots (its digit to cdig, its source t L + l to the slot
+    list; slots from K on dropped), and gives its share of the slots above
+    the window's live ones digit 0 and source -1; the gather grid's thread
+    a (window, slot) copies its source's PW words of ept, or zeros.
+    Returns (cdig, cpts, the slot list)."""
     nwin, T1, PW, L = ept.shape
-    lanecnt = (edig > 0).sum(1)                          # (nwin, L)
-    cdig = torch.full((nwin, K), -7, dtype=torch.int32)  # unwritten: -7
-    cpts = torch.full((nwin, PW, K), -7, dtype=torch.int32)
+    e, p = edig.numpy(), ept.numpy()
+    lanecnt = (e > 0).sum(1)                             # the count grid
+    cdig = np.full((nwin, K), -7, np.int64)              # unwritten: -7
+    src = np.full((nwin, K), -7, np.int64)
     nblocks = -(-L // COMPACT_THREADS)
     for w in range(nwin):
         live = min(int(lanecnt[w].sum()), K)
         share = -(-(K - live) // nblocks)
         for b in range(nblocks):
-            lanes = range(b * COMPACT_THREADS, min(L, (b + 1) * COMPACT_THREADS))
+            lanes = range(b * COMPACT_THREADS,
+                          min(L, (b + 1) * COMPACT_THREADS))
             slot = int(lanecnt[w, :lanes.start].sum())
             for l in lanes:
-                for t in range(T1):
-                    if edig[w, t, l] > 0:
-                        if slot < K:
-                            cdig[w, slot] = edig[w, t, l]
-                            cpts[w, :, slot] = ept[w, t, :, l]
-                        slot += 1
+                for t in np.nonzero(e[w, :, l] > 0)[0]:
+                    if slot < K:
+                        cdig[w, slot], src[w, slot] = e[w, t, l], t * L + l
+                    slot += 1
             z0 = live + b * share
             cdig[w, z0:min(K, z0 + share)] = 0
-            cpts[w, :, z0:min(K, z0 + share)] = 0
-    return cdig, cpts
+            src[w, z0:min(K, z0 + share)] = -1
+    assert (src != -7).all() and (cdig != -7).all()       # every slot written
+    t, l = np.maximum(src, 0) // L, np.maximum(src, 0) % L
+    cpts = p[np.arange(nwin)[:, None], t, :, l].transpose(0, 2, 1)
+    cpts = np.where(src[:, None, :] >= 0, cpts, 0)
+    return (torch.from_numpy(cdig.astype(np.int32)),
+            torch.from_numpy(np.ascontiguousarray(cpts).astype(np.int32)),
+            src)
 
 
 COMPACT_CASES = {        # (nwin, T1, L, live share, K over the most live)
@@ -292,13 +339,156 @@ def test_compact_model_matches_plain(curve, case):
     K = int((edig > 0).sum((1, 2)).max()) + spare
     want = _compact_walk(edig.numpy(), ept.numpy(), K)
     plain = M.compact_plain(edig, ept, K)
-    model = _compact_model(edig, ept, K)
+    model = _compact_model(edig, ept, K)[:2]
     routed = M.compact(edig, ept, K)          # a CPU tensor: the plain one
     for got in (plain, model, routed):
         assert torch.equal(got[0], want[0])
         assert torch.equal(got[1], want[1])
     if case == "exact_fit":
         assert (want[0] > 0).sum(1).max() == K
+
+
+def _warp_digits(case, bins, rng):
+    """32 digits of one warp in [0, bins], bins the end sentinel."""
+    if case == "distinct":
+        return rng.permutation(bins)[:32]
+    if case == "equal":
+        return np.full(32, rng.integers(bins))
+    if case == "mixed":                   # a few digits, each in many lanes
+        return rng.choice(rng.integers(0, bins, 5), 32)
+    if case == "sentinel":                # a ragged warp: the end past lane 19
+        d = rng.choice(np.array([0, 1, bins - 1, bins - 2]), 32)
+        d[19:] = bins
+        return d
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["distinct", "equal", "mixed", "sentinel"])
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_ballot_rank_matches_match_any(curve, case):
+    """The scatter's rank by ballots, one a bit of |digit| over c bits
+    (the end sentinel 2^(c-1) + 1 fits), gives each lane the peers
+    `__match_any_sync` gives, the lanes holding its digit; so its rank
+    (its peers below it) counts the equal digits before it, and its
+    leader (its lowest peer) is the first lane of its digit."""
+    spec = M.SPECS[curve]
+    bins = spec.n_buckets + 1
+    assert bins < 1 << spec.c_bits
+    rng = np.random.default_rng(len(case) + spec.c_bits)
+    for _ in range(16):
+        d = _warp_digits(case, bins + 1, rng)
+        m = _ballot_peers(d, spec.c_bits)
+        match_any = [sum(1 << int(j) for j in np.nonzero(d == x)[0])
+                     for x in d]
+        assert [int(x) for x in m] == match_any
+        rank = np.bitwise_count(m & BELOW)
+        assert rank.tolist() == [int((d[:i] == d[i]).sum())
+                                 for i in range(32)]
+        lead = (m & BELOW) == 0
+        assert lead.tolist() == [d[i] not in d[:i] for i in range(32)]
+    if case == "distinct":
+        assert (m == (np.uint64(1) << LANES)).all()
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_staged_write_matches_stable_sort(curve, case):
+    """The scatter's staged words of each (window, block) item are the
+    block's entries in stable order by |digit| (a stable sort of the
+    block alone), each with its packed digit; so a bin's entries in the
+    block take consecutive positions j and go to consecutive slots j +
+    delta, and the slots equal the whole window's stable sort."""
+    spec = M.SPECS[curve]
+    rows, sc = _layout_inputs(case, spec)
+    packed, counts = M.layout_recode(sc, spec)
+    totals = M.layout_scan(counts)
+    staged = []
+    got = _emulated_scatter(packed, counts, totals, spec, staged)
+    n, chunk = sc.shape[0], spec.layout_chunk
+    assert len(staged) == spec.n_windows * M.layout_blocks(n, spec)
+    pk = packed.numpy().astype(np.int64) & 0xFFFF
+    for w, b, stage in staged:
+        block = pk[w, b * chunk:min(n, (b + 1) * chunk)]
+        order = np.argsort(block & 0x7FFF, kind="stable")
+        assert ((stage & 0xFFFF) == order).all()
+        assert ((stage >> 16) == block[order]).all()
+    mags, sgns = M.recode(sc, spec)
+    sdig, perm = torch.sort(mags, dim=1, stable=True)
+    assert torch.equal(got[0], sdig.to(torch.int32))
+    assert torch.equal(got[1], sgns.gather(1, perm).to(torch.int32))
+    assert torch.equal(got[2], perm.to(torch.int32))
+
+
+SM_SHARED = 233472          # an H100 SM's shared memory, bytes
+BLOCK_RESERVED = 1024       # of it reserved a resident block
+WALK_SHAPES = {"a": ("g1", 143360), "b1": ("g1", 143360),
+               "l": ("g1", 143360), "h": ("g1", 262144),
+               "b2": ("g2", 141312)}
+
+
+def _scatter_smem(spec):
+    """The scatter's shared memory a block, as `scatter_smem` in
+    msm_layout.cu sums it: 16-bit counters of 8 warps a bin, the bin
+    offsets (bins + 1 words, padded to 16 bytes), a staged word an
+    entry."""
+    bins = spec.n_buckets + 1
+    return bins * M.SCATTER_WARPS * 2 + ((bins + 4) & ~3) * 4 + \
+        spec.layout_chunk * 4
+
+
+@pytest.mark.parametrize("shape", sorted(WALK_SHAPES))
+def test_scatter_grid_covers_each_item_once(shape):
+    """At the five MSM shapes of a process proof, the scatter's grid, a
+    block a (block of entries, window) in launch order, walks every item
+    once: the blocks of a window tile its sorted positions [0, N), each
+    writing the digits of its own range; and its shared memory (114,720
+    bytes at G1, as the source's note sums it) lets two blocks onto an
+    SM."""
+    curve, n = WALK_SHAPES[shape]
+    spec = M.SPECS[curve]
+    src = (CSRC / "msm_layout.cu").read_text()
+    assert re.search(r"msm_scatter_kernel<P><<<dim3\(nblk, P::kCount\)", src)
+    nblk = M.layout_blocks(n, spec)
+    seen = np.zeros((spec.n_windows, n), np.int64)
+    for win in range(spec.n_windows):            # blockIdx.y
+        for blk in range(nblk):                  # blockIdx.x
+            lo, hi = blk * spec.layout_chunk, min(n, (blk + 1) *
+                                                  spec.layout_chunk)
+            seen[win, lo:hi] += 1
+    assert (seen == 1).all()
+    smem = _scatter_smem(spec)
+    if curve == "g1":
+        assert smem == 114720 and "114,720 bytes" in src
+    assert 2 * (smem + BLOCK_RESERVED) <= SM_SHARED
+
+
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_compact_slot_list(curve):
+    """The compaction's slot list holds, slot by slot, the source t L + l of
+    each live emission in the order of `_compact_walk` (lane by lane, t
+    rising), then -1; with its digits and words it equals
+    `compact_plain`, for a window with no live emission, one with K live
+    (every slot taken) and one in between, over several list blocks."""
+    spec = M.SPECS[curve]
+    nwin, T1, L = 3, 5, 4 * COMPACT_THREADS + 300
+    edig, ept = _emissions(17, nwin, T1, spec.PW, L, 0.02)
+    edig[0] = 0                                       # no live emission
+    edig[2] = torch.where(torch.rand(T1, L, generator=torch.Generator()
+                                     .manual_seed(3)) < 0.05, 5, 0)
+    live = (edig > 0).sum((1, 2))
+    K = int(live.max())
+    assert live[0] == 0 and live[2] == K > live[1] > 0
+    cdig, cpts, src = _compact_model(edig, ept, K)
+    e = edig.numpy()
+    for w in range(nwin):
+        t, l = np.nonzero(e[w].T > 0)[1], np.nonzero(e[w].T > 0)[0]
+        assert (src[w, :live[w]] == t * L + l).all()
+        assert (src[w, live[w]:] == -1).all()
+    want = _compact_walk(e, ept.numpy(), K)
+    plain = M.compact_plain(edig, ept, K)
+    for got in (want, plain):
+        assert torch.equal(cdig, got[0])
+        assert torch.equal(cpts, got[1])
 
 
 def test_query_words_cached_once(monkeypatch):
