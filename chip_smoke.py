@@ -19,9 +19,12 @@ Phases, in order; any failure raises and exits nonzero:
      proof from the loaded key verified;
   4. kernels at the first process proof's shapes: at each of its five
      MSMs (`a`, `b1`, `l`, `h` over G1, `b2` over G2) the layout's
-     kernels (`csrc/msm_layout.cu`: the recode, the scan, the scatter) and
-     the compaction kernel each equal to its plain version bit for bit and
-     timed alone beside it and its bound, the whole layout beside the
+     kernels (`csrc/msm_layout.cu`: the recode launch, fed the prove's
+     standard-form words and the query's infinity mask, which writes the
+     scanned offsets too; the scatter) and the compaction kernel each
+     equal to its plain version bit for bit and timed alone beside it and
+     its bound, the recode beside the torch ops that left its path and
+     torch.cumsum (the scan's yardstick), the whole layout beside the
      torch glue it replaced and torch.sort(stable) + gather; the layout
      stage and the accumulation kernel timed, with the mixed adds, the
      bound, the kernel's registers and its grid in waves; at `a` and `b2` each MSM
@@ -51,7 +54,8 @@ Phases, in order; any failure raises and exits nonzero:
      with their stage traces, the H pipeline's host enqueue time beside
      its span on the card, every kernel's launches in one steady prove
      (the H stage's as planned, no pointwise launch; every MSM kernel
-     once an MSM) and a profiled steady prove's device kernel count and
+     once an MSM, each recode fed (n, 8) int32 words and no padded
+     copy) and a profiled steady prove's device kernel count and
      busy time, whole and by kernel group;
   5. negative checks: a tampered proof and a wrong public input are
      rejected;
@@ -169,15 +173,14 @@ KERNEL_ROWS = (
      "infimum_tpu/groth16/rowval.py:87"),
     # counterparts of the glue inside the JAX package's compiled MSM program
     # `_msm_fn` (XLA ops, not Pallas kernels): the recode scan over the
-    # windows, each window's stable sort_key_val with the gather of the
-    # signs (the scan of the block histograms and the scatter), and the
-    # compaction's .at[dest].set
+    # windows (with the block histograms and their scan, the counting half
+    # of the sort, in the same launch), each window's stable sort_key_val
+    # with the gather of the signs (the scatter), and the compaction's
+    # .at[dest].set
     ("msm_recode_g1", "infimum_tpu_torch/csrc/msm_layout.cu",
      "infimum_tpu/msm/pallas_msm.py:441"),
     ("msm_recode_g2", "infimum_tpu_torch/csrc/msm_layout.cu",
      "infimum_tpu/msm/pallas_msm.py:441"),
-    ("msm_scan", "infimum_tpu_torch/csrc/msm_layout.cu",
-     "infimum_tpu/msm/pallas_msm.py:446"),
     ("msm_scatter_g1", "infimum_tpu_torch/csrc/msm_layout.cu",
      "infimum_tpu/msm/pallas_msm.py:446"),
     ("msm_scatter_g2", "infimum_tpu_torch/csrc/msm_layout.cu",
@@ -265,23 +268,23 @@ def cuda_ms(fn, reps: int, warm: int = 0):
 
 def query_inputs(pk, cs, witness):
     """The five MSMs of one process proof as `prove()` dispatches them:
-    (name, curve, rows, scalars, lanes) for `a`, `b1`, `l`, `h` (G1) and
-    `b2` (G2)."""
+    (name, curve, rows, scalars, mask, lanes) for `a`, `b1`, `l`, `h` (G1)
+    and `b2` (G2); the scalars the prove's standard-form words (the
+    witness's, its slice from the public values for `l`, H's), which the
+    recode pads to the rows and masks by the query's infinity mask."""
     from infimum_tpu_torch.curve.proj import G1_DEV, G2_DEV
-    from infimum_tpu_torch.ff.bn254 import FR_MOD
-    from infimum_tpu_torch.ff.fp import ints_to_tensor
     from infimum_tpu_torch.groth16.groth16 import (
-        _domain_size, _msm_inputs, h_rows,
+        _domain_size, _msm_inputs, h_words,
     )
+    from infimum_tpu_torch.groth16.rowval import ints_to_words
 
-    w = ints_to_tensor([x % FR_MOD for x in witness], "cuda")
+    w = ints_to_words(witness, "cuda")
     npub, m = cs.num_public + 1, _domain_size(cs)
     return [(name, curve, *_msm_inputs(pk, name, points, scalars, curve))
             for name, points, curve, scalars in (
                 ("a", pk.a_query, G1_DEV, w), ("b1", pk.b_g1_query, G1_DEV, w),
                 ("l", pk.l_query, G1_DEV, w[npub:]),
-                ("h", pk.h_query, G1_DEV,
-                 h_rows(cs, witness, "cuda")[:m - 1]),
+                ("h", pk.h_query, G1_DEV, h_words(cs, w, "cuda")[:m - 1]),
                 ("b2", pk.b_g2_query, G2_DEV, w))]
 
 
@@ -328,13 +331,14 @@ def kernel_vs_plain(pk, cs, witness, mul_rate, tag=""):
     per-kernel rows (error, ms, plain ms, bound ms, bound by[, library
     ms]) at `a` and `b2`. `tag` goes before each line's label."""
     rows_out = {}
-    for name, curve, rows, sc, lanes in query_inputs(pk, cs, witness):
-        rows_out.update(msm_kernels(name, curve, rows, sc, lanes, mul_rate,
-                                    tag, compare=name in ("a", "b2")))
+    for name, curve, rows, sc, mask, lanes in query_inputs(pk, cs, witness):
+        rows_out.update(msm_kernels(name, curve, rows, sc, mask, lanes,
+                                    mul_rate, tag,
+                                    compare=name in ("a", "b2")))
     return rows_out
 
 
-def msm_kernels(name, curve, rows, sc, lanes, mul_rate, tag="",
+def msm_kernels(name, curve, rows, sc, mask, lanes, mul_rate, tag="",
                 compare=False) -> dict:
     """One MSM's layout and compaction kernels (`layout_kernels`,
     `compact_kernel`) and its accumulation kernel timed, with the mixed
@@ -347,7 +351,8 @@ def msm_kernels(name, curve, rows, sc, lanes, mul_rate, tag="",
 
     spec = M.SPECS[curve.name]
     N = rows.shape[0]
-    glue, layout = layout_kernels(name, spec, rows, sc, lanes, mul_rate, tag)
+    glue, layout = layout_kernels(name, spec, rows, sc, mask, lanes,
+                                  mul_rate, tag)
     acc_ms, (edig, ept) = cuda_ms(lambda: M.accumulate(*layout, spec), 3,
                                   warm=1)
     glue.update(compact_kernel(name, spec, edig, ept, lanes, mul_rate, tag))
@@ -408,88 +413,107 @@ def msm_kernels(name, curve, rows, sc, lanes, mul_rate, tag="",
                                            *wt_bound), **glue}
 
 
-def layout_kernels(name, spec, rows, sc, lanes, mul_rate, tag="") -> tuple:
+def layout_kernels(name, spec, rows, sc, mask, lanes, mul_rate,
+                   tag="") -> tuple:
     """The layout's kernels (csrc/msm_layout.cu) at one MSM's shape: the
-    recode, the scan and the scatter, each held bit for bit against its
-    plain version on the same inputs, timed alone (10 calls behind a spin
-    kernel) beside its plain version and its bound (bytes: no products);
-    then the whole layout through its wrappers against `lane_layout_plain`
-    from the table's limbs (the torch glue it replaced: the recode, the
-    stable sort, the sign gather and the table's conversion) and against
-    torch.sort(stable=True) plus the gather of the signs (the library
-    call). Returns rows (error, ms, plain ms, bound ms, bound by[, library
-    ms]) of the curve's recode and scatter and, at G1, the scan; and the
-    layout, the accumulation kernel's inputs."""
+    recode launch from the prove's standard-form words (padding to the
+    table's rows and the query's infinity mask in the kernel) to packed,
+    offsets and totals, and the scatter, each held bit for bit against its
+    plain version on the same inputs (the recode's: `layout_recode_plain`
+    and `layout_scan_plain`), timed alone (10 calls behind a spin kernel)
+    beside its plain version and its bound (bytes: no products; the
+    recode's counting the words of the live unmasked rows, the mask,
+    packed, the offsets and totals once, and beside it the bound with the
+    scan's reread and rewrite of the counts charged); beside the recode,
+    the torch ops that left the path (the words' conversion to limbs and
+    the padded, masked int64 copy) alone and torch.cumsum(counts, 1), the
+    scan's library yardstick; then the whole layout through its wrappers
+    against `lane_layout_plain` from the table's limbs (the torch glue the
+    kernels replaced: the recode, the stable sort, the sign gather and
+    the table's conversion) and against torch.sort(stable=True) plus the
+    gather of the signs (the library call). Returns rows (error, ms, plain
+    ms, bound ms, bound by[, library ms]) of the curve's recode and
+    scatter, and the layout, the accumulation kernel's inputs."""
     from infimum_tpu_torch import kernels
     from infimum_tpu_torch.msm import msm as M
 
     reps, c = 10, spec.name
-    packed, counts = M.layout_recode(sc, spec)
-    p_packed, p_counts = M.layout_recode_plain(sc, spec)
-    offsets, p_offsets = counts.clone(), counts.clone()
-    totals = M.layout_scan(offsets)
-    p_totals = M.layout_scan_plain(p_offsets)
+    N, n = rows.shape[0], sc.shape[0]
+    if sc.dtype != torch.int32 or sc.shape[1] != 8:
+        raise AssertionError(f"{name}: the recode is fed {sc.dtype} "
+                             f"{tuple(sc.shape)}, not the prove's words")
+    packed, offsets, totals = M.layout_recode(sc, spec, N, mask)
+    p_packed, p_counts = M.layout_recode_plain(sc, spec, N, mask)
+    counts = p_counts.clone()
+    p_totals = M.layout_scan_plain(p_counts)
     got = M.layout_scatter(packed, offsets, totals, spec)
     want = M.layout_scatter_plain(packed, offsets, totals, spec)
-    whole = M.lane_layout(rows, sc, lanes, spec)
+    whole = M.lane_layout(rows, sc, lanes, spec, mask)
     limbs = M.words_to_limbs(rows) if rows.dtype == torch.int32 else rows
-    before = M.lane_layout_plain(limbs, sc, lanes, spec)
+    before = M.lane_layout_plain(limbs, sc, lanes, spec, mask)
     checks = {
-        "recode": torch.equal(packed, p_packed) and torch.equal(counts,
-                                                                p_counts),
-        "scan": torch.equal(totals, p_totals) and torch.equal(offsets,
-                                                              p_offsets),
+        "recode": all(torch.equal(g, w) for g, w in zip(
+            (packed, offsets, totals), (p_packed, p_counts, p_totals))),
         "scatter": all(torch.equal(g, w) for g, w in zip(got, want)),
         "lane_layout": all(torch.equal(g, w) for g, w in zip(whole, before))}
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"{name}: {bad} differ from their plain versions")
-    pool = [counts.clone() for _ in range(reps + 1)]      # scanned in place
-    plain_pool = [counts.clone() for _ in range(4)]
+
+    def plain_recode():
+        out = M.layout_recode_plain(sc, spec, N, mask)
+        return out, M.layout_scan_plain(out[1])
+
     times = {
-        "recode": (alone_ms(lambda: M.layout_recode(sc, spec), reps)[0],
-                   cuda_ms(lambda: M.layout_recode_plain(sc, spec), 3,
-                           warm=1)[0]),
-        "scan": (alone_ms(lambda: M.layout_scan(pool.pop()), reps)[0],
-                 cuda_ms(lambda: M.layout_scan_plain(plain_pool.pop()), 3,
-                         warm=1)[0]),
+        "recode": (alone_ms(lambda: M.layout_recode(sc, spec, N, mask),
+                            reps)[0], cuda_ms(plain_recode, 3, warm=1)[0]),
         "scatter": (alone_ms(lambda: M.layout_scatter(
             packed, offsets, totals, spec), reps)[0], cuda_ms(
             lambda: M.layout_scatter_plain(packed, offsets, totals, spec), 3,
             warm=1)[0])}
-    bounds = {"recode": bound(nbytes(sc, packed, counts), 0, mul_rate),
-              "scan": bound(2 * nbytes(counts) + nbytes(totals), 0, mul_rate),
+    live = n if mask is None else n - int(mask[:n].sum())
+    recode_bytes = (live * 32 + (0 if mask is None else n)
+                    + nbytes(packed, offsets, totals))
+    bounds = {"recode": bound(recode_bytes, 0, mul_rate),
               "scatter": bound(nbytes(packed, offsets, totals, *got), 0,
                                mul_rate)}
-    mags, sgns = M.recode(sc, spec)
+    rescan = bound(recode_bytes + 2 * nbytes(offsets), 0, mul_rate)[0]
+    torch_ops_ms = alone_ms(lambda: M.padded_limbs(sc, N, mask), reps)[0]
+    cumsum_ms = alone_ms(lambda: torch.cumsum(counts, 1), reps)[0]
+    mags, sgns = M.recode(M.padded_limbs(sc, N, mask), spec)
     lib_ms = cuda_ms(lambda: sgns.gather(1, torch.sort(
         mags, dim=1, stable=True)[1]), 3, warm=1)[0]
-    whole_ms = cuda_ms(lambda: M.lane_layout(rows, sc, lanes, spec), 3,
+    whole_ms = cuda_ms(lambda: M.lane_layout(rows, sc, lanes, spec, mask), 3,
                        warm=1)[0]
-    before_ms = cuda_ms(lambda: M.lane_layout_plain(limbs, sc, lanes, spec),
-                        3, warm=1)[0]
-    fn_bound = bound(nbytes(sc, *got), 0, mul_rate)
-    N, (nwin, nblk, bins) = sc.shape[0], counts.shape
+    before_ms = cuda_ms(lambda: M.lane_layout_plain(limbs, sc, lanes, spec,
+                                                    mask), 3, warm=1)[0]
+    fn_bound = bound(recode_bytes + nbytes(*got), 0, mul_rate)
+    nwin, nblk, bins = offsets.shape
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     resident = kernels.scatter_blocks_per_sm(c) * sms
-    log(f"[{tag}layout] {name} ({c}, {N} entries x {nwin} windows, {nblk} "
-        f"blocks of {spec.layout_chunk} a window, {bins} bins; the scatter's"
-        f" {nblk * nwin} blocks, {resident} resident = "
-        f"{nblk * nwin / resident:.2f} waves): " + "; ".join(
+    items = nblk * -(-nwin // spec.recode_group)
+    grid = min(items, kernels.recode_blocks_per_sm(c) * sms)
+    log(f"[{tag}layout] {name} ({c}, {n} scalars of {N} rows "
+        f"({n - live} masked) x {nwin} windows, {nblk} blocks of "
+        f"{spec.layout_chunk} a window, {bins} bins; the recode's {items} "
+        f"items on a grid of {grid}; the scatter's {nblk * nwin} blocks, "
+        f"{resident} resident = {nblk * nwin / resident:.2f} waves): "
+        + "; ".join(
             f"{k} {ms:.4f} ms alone (plain {p:.3f}), bound {bounds[k][0]:.4f}"
             f" ({bounds[k][1]}), {bounds[k][0] / ms:.1%} of bound"
             for k, (ms, p) in times.items())
-        + f"; the layout {whole_ms:.4f} ms through its wrappers (the "
-        f"function's bound {fn_bound[0]:.4f}, {fn_bound[0] / whole_ms:.1%}) "
-        f"against the torch glue it replaced {before_ms:.3f} ms and "
-        f"torch.sort(stable) + gather {lib_ms:.3f} ms; every kernel equal to"
-        f" its plain version; card {card_line()}")
-    out = {f"msm_recode_{c}": (0, *times["recode"], *bounds["recode"]),
-           f"msm_scatter_{c}": (0, *times["scatter"], *bounds["scatter"],
-                                lib_ms)}
-    if c == "g1":
-        out["msm_scan"] = (0, *times["scan"], *bounds["scan"])
-    return out, whole
+        + f"; the recode's bound with the scan's reread and rewrite of the "
+        f"counts {rescan:.4f} ({rescan / times['recode'][0]:.1%}); the "
+        f"torch ops that left the path (limbs, padded and masked) "
+        f"{torch_ops_ms:.4f} ms alone; torch.cumsum(counts, 1) "
+        f"{cumsum_ms:.4f} ms alone; the layout {whole_ms:.4f} ms through its"
+        f" wrappers (the function's bound {fn_bound[0]:.4f}, "
+        f"{fn_bound[0] / whole_ms:.1%}) against the torch glue it replaced "
+        f"{before_ms:.3f} ms and torch.sort(stable) + gather {lib_ms:.3f} "
+        f"ms; every kernel equal to its plain version; card {card_line()}")
+    return ({f"msm_recode_{c}": (0, *times["recode"], *bounds["recode"]),
+             f"msm_scatter_{c}": (0, *times["scatter"], *bounds["scatter"],
+                                  lib_ms)}, whole)
 
 
 def compact_kernel(name, spec, edig, ept, lanes, mul_rate, tag="") -> dict:
@@ -636,12 +660,12 @@ def steady_prove(pk, cs, witness, publics) -> float:
 
 
 # the device kernels of a traced prove, grouped by the name each contains
-# (the layout's count grid is msm_count_kernel, the compaction's three
-# grids msm_compact_count_kernel, msm_compact_list_kernel and
-# msm_compact_gather_kernel)
+# (the recode's one grid, its scan included, is msm_recode_kernel; the
+# compaction's three grids msm_compact_count_kernel,
+# msm_compact_list_kernel and msm_compact_gather_kernel)
 TRACE_GROUPS = ("fr_rows", "fr_ntt_tile", "fr_ntt_pass", "fr_pointwise",
-                "msm_accum", "msm_weighted", "msm_recode", "msm_count",
-                "msm_scan", "msm_scatter", "msm_compact")
+                "msm_accum", "msm_weighted", "msm_recode", "msm_scatter",
+                "msm_compact")
 
 
 def traced_prove(pk, cs, witness) -> None:
@@ -1194,10 +1218,30 @@ def prove_launches(pk, cs, witness) -> dict:
     from infimum_tpu_torch import kernels
     from infimum_tpu_torch.groth16 import groth16 as g16
 
-    kernels.reset_counts()
-    g16.prove(pk, cs, witness, device="cuda")
-    torch.cuda.synchronize()
+    from infimum_tpu_torch.msm import msm as M
+
+    fed, real = [], (M.layout_recode, M.padded_limbs)
+
+    def recode(sc, *a, **k):
+        fed.append((sc.dtype, tuple(sc.shape)))
+        return real[0](sc, *a, **k)
+
+    def padded(*a, **k):
+        fed.append("padded_limbs")
+        return real[1](*a, **k)
+
+    M.layout_recode, M.padded_limbs = recode, padded
+    try:
+        kernels.reset_counts()
+        g16.prove(pk, cs, witness, device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        M.layout_recode, M.padded_limbs = real
     counts = {k: n for k, n in kernels.launch_counts().items() if n}
+    if len(fed) != 5 or any(f == "padded_limbs" or f[0] != torch.int32
+                            or f[1][1] != 8 for f in fed):
+        raise AssertionError(f"a steady prove() fed its recodes {fed}, want "
+                             f"five (n, 8) int32 words and no padded copy")
     plan = h_launches(g16.sparse_rows(cs, "cuda"), g16._domain_size(cs),
                       len(witness), False)
     want = {k: sum(1 for name, *_ in plan if name == k) for k in H_KERNELS}
@@ -1208,18 +1252,17 @@ def prove_launches(pk, cs, witness) -> dict:
     missing = [k for k in MSM_KERNELS if not counts.get(k)]
     if missing:
         raise AssertionError(f"a steady prove() never launched {missing}")
-    # each MSM launches every stage of its curve once, and the scan once
+    # each MSM launches every stage of its curve once: its recode (the
+    # scan in the same launch) fed the prove's words as they are, no
+    # padded or limb copy of them made
     for curve in ("g1", "g2"):
         stages = {k: counts[k] for k in MSM_KERNELS if k.endswith(curve)}
         if len(set(stages.values())) != 1:
             raise AssertionError(f"a steady prove()'s {curve} MSM launches "
                                  f"differ: {stages}")
-    if counts["msm_scan"] != counts["msm_accum_g1"] + counts["msm_accum_g2"]:
-        raise AssertionError(f"a steady prove() launched msm_scan "
-                             f"{counts['msm_scan']} times, want one an MSM")
     log(f"[prove] launches of one steady process prove(): "
         f"{json.dumps(counts)} (no fr_pointwise: the witness is not "
-        f"encoded)")
+        f"encoded); its recodes fed {fed} (words, no padded copy)")
     return counts
 
 
@@ -1720,10 +1763,10 @@ def zkey_phase(run, mul_rate, pass_input) -> None:
             f"{', '.join(f'{t:.1f}' for t, _ in runs)}; stage traces (s): "
             f"{'; '.join(json.dumps(tr) for _, tr in runs)}")
 
-    p_odd = Z.odd_coset_rows(back, witness, "cuda")
-    rows, sc, lanes = g16._msm_inputs(back, "h", back.h_query, p_odd, G1_DEV)
-    msm_kernels("h", G1_DEV, rows, sc, lanes, mul_rate, tag="zkey ",
-                compare=True)
+    p_odd = Z.odd_coset_words(back, witness, "cuda")
+    msm_kernels("h", G1_DEV, *g16._msm_inputs(back, "h", back.h_query, p_odd,
+                                              G1_DEV),
+                mul_rate, tag="zkey ", compare=True)
     h_phase("zkey", Z.zkey_rows(back, "cuda"), witness, back.domain_size,
             mul_rate, lambda ww: Z.odd_coset_rows(back, ww, "cuda"),
             lambda w: Z.odd_coset_rows_plain(back, w, "cuda"), zkey=True,
@@ -1842,7 +1885,8 @@ def multi_inputs(run, trees, tmp: str):
         np.save(path, words.cpu().numpy())
         return path
 
-    q = {name: (curve.name, rows, sc) for name, curve, rows, sc, _ in
+    q = {name: (curve.name, rows, M.padded_limbs(sc, rows.shape[0], mask))
+         for name, curve, rows, sc, mask, _ in
          query_inputs(run.keys.process_pk, run.keys.process_circuit.cs,
                       run.first_process["witness"]) if name in ("h", "b2")}
     rng = np.random.default_rng(MULTI_SEED)

@@ -7,21 +7,30 @@
 // arange(N) and the gather of the signs (:444-453), and the compaction of
 // the accumulation's emissions (flags, cumsum, .at[dest].set, :456-466).
 // On the TPU these are XLA ops inside one compiled program; here they are
-// four C entry points, each with a plain torch version in msm/msm.py.
+// three C entry points, each with a plain torch version in msm/msm.py.
 //
 // What it computes:
-//  1. inf_msm_recode_*: the signed c-bit recode of each scalar, windows in
-//     order with the carry (a thread a scalar, its 16 standard-form limbs
-//     read as 8 words; bits above 255 are zero, as the reference pads),
-//     into one packed (nwin, N) uint16 buffer, |digit| | sign << 15. A
-//     second grid counts |digit| per (window, block of kChunk entries) in a
-//     shared-memory histogram of 2^(c-1) + 1 bins: counts (nwin, nblk,
-//     bins). Bin 0 is heavy (the padding rows and the query's infinity
-//     points have zero scalars): a warp adds its zeros with one atomic.
-//  2. inf_msm_scan: per window and bin, the exclusive prefix of the counts
-//     over the blocks, in place, and the bin's total: (nwin, bins). A small
-//     launch of its own, a thread a bin.
-//  3. inf_msm_scatter_*: per (block, window): the window's bin offsets
+//  1. inf_msm_recode_*: from the scalars as the prover holds them, (n, 8)
+//     standard-form words, to what the scatter reads, in one launch. The
+//     signed c-bit recode of each scalar, windows in order with the carry,
+//     into one packed (nwin, rows) uint16 buffer, |digit| | sign << 15;
+//     rows from n on (the query's padding) and rows the query's infinity
+//     mask names recode as zero digits, their words never read. Each
+//     (block of kChunk rows, window)'s |digit| histogram of 2^(c-1) + 1
+//     bins: counts (nwin, nblk, bins). Bin 0 is heavy (the padding rows
+//     and the infinity points): a warp adds its zeros with one atomic, the
+//     padding rows are added as one count. An item is (block of rows,
+//     group of kGroup windows): its threads take pairs of rows, find each
+//     scalar's carry into the group's first window by lookahead (the
+//     nearest lower window whose raw digit is not 2^(c-1) decides it),
+//     recode the group's windows and count them in shared memory. Then,
+//     after a grid-wide barrier, the same launch scans the counts: per
+//     window and bin the exclusive prefix over the blocks, in place (the
+//     offsets), and the bin's total: (nwin, bins).
+//     Replaces inf_msm_recode_* (limbs in, a grid of its own for the
+//     histograms) and inf_msm_scan (a launch of its own) of commit
+//     c6f14c6.
+//  2. inf_msm_scatter_*: per (block, window): the window's bin offsets
 //     (its totals scanned) and the block's offsets, loaded first. Each of
 //     8 warps owns an eighth of the block's entries, read once into
 //     registers, and counts them per bin by shared atomics (16-bit
@@ -43,7 +52,7 @@
 //     marks its first position in shared memory and a running maximum
 //     fills the rest. All three are (nwin, N) int32 = the (nwin, L, T) lane
 //     layout the accumulation kernel reads.
-//  4. inf_msm_compact_*: per window, the live emissions (digit > 0) lane by
+//  3. inf_msm_compact_*: per window, the live emissions (digit > 0) lane by
 //     lane, t rising inside a lane, each to the next of K slots: cdig
 //     (nwin, K) and cpts (nwin, PW, K), the slots above the live ones
 //     zeroed. Slots first, words after, in three grids: the count (a
@@ -55,53 +64,74 @@
 //     words of ept, L words apart, all loads in flight, each store
 //     coalesced across the warp). No permuted copy of ept is made.
 //
-// Grids: the recode a thread a scalar; the count and the scatter a block
-// a (block of entries, window), 360 blocks at the `a` query (143,360
-// rows, kChunkG1 = 8,192: 18 blocks a window) and 910 at `b2`, the
-// scatter two blocks an SM at G1 (114,720 bytes of shared memory each);
-// the scan a thread a (window, bin); the compaction's count and list a
-// block of 256 lanes a window (320 blocks at `a`), its gather a block of
-// 256 slots a window (660 at `a`). The chunk sizes the counts array,
-// (nwin, nblk, bins) int32: 5.9 MB at `a`.
+// Grids: the recode a persistent grid of 512 threads a block, as many
+// blocks as its items or as fit on the card at once (a cooperative
+// launch), items of (block of kChunkG1 = 8,192 rows, 4 windows) at G1 (90
+// at the `a` query's 143,360 rows, 18 blocks a window; 160 at `h`),
+// (4,096 rows, 4 windows) at G2 (245 at `b2`); the scan one column a
+// thread over the grid. The
+// scatter a block a (block of entries, window), 360 blocks at `a`
+// and 910 at `b2`, the scatter two blocks an SM at G1 (114,720 bytes of
+// shared memory each); the compaction's count and list a block of 256
+// lanes a window (320 blocks at `a`), its gather a block of 256 slots a
+// window (660 at `a`). The chunk sizes the counts array, (nwin, nblk,
+// bins) int32: 5.9 MB at `a`.
 //
 // What bounds it, on an H100: bytes. No field product is done. The
-// scatter's slot writes go wherever the digits send them; staged in
+// recode reads a scalar's 32 bytes once from memory (its item's other
+// groups find them in the 50 MB L2) and writes packed and the counts
+// once; its scan reads and rewrites the counts while they are in L2. In
+// practice it waits on its loads: an item's 16 warps walk 8,192 rows in
+// 8 steps, each a load of two rows' words before their recode; the
+// mask's bytes are read first, all at once, so no load of words waits on
+// one of them; the lookahead keeps the recode's arithmetic to the
+// group's windows and one more. PERF.md gives the variants it was timed
+// against in turns: a larger grid, a prefetch to L2, the scan in the last
+// block of a group or in a grid of its own.
+// The scatter's slot writes go wherever the digits send them; staged in
 // sorted order, a bin's run in a block is stored by consecutive threads
 // (about 2 entries a bin a block at G1, 8 at G2), and blocks in launch
 // order write adjacent runs of a bin, which the 50 MB L2 merges before
 // they reach memory. The compaction's reads of a live emission's words
 // are a 32-byte sector each (ept is lane-minor: 24 sectors an emission
 // at G1, 48 at G2), its floor; the gather keeps them all in flight.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "field.cuh"
 
 namespace inf {
 
-constexpr int kRecodeThreads = 256;
-constexpr int kCountThreads = 256;
-constexpr int kScanThreads = 256;
+constexpr int kRecodeThreads = 512;
 constexpr int kScatterWarps = 8;
 constexpr int kScatterThreads = 32 * kScatterWarps;
 constexpr int kCompactThreads = 256;
 constexpr int kListBatch = 8;  // the compaction's list: loads a lane in flight
-// entries a block of the count and scatter grids, per curve
+// entries a block of the recode's histograms and of the scatter, per curve
 constexpr int kChunkG1 = 8192;
 constexpr int kChunkG2 = 4096;
+// windows a recode item (a block's histograms), per curve
+constexpr int kGroupG1 = 4;
+constexpr int kGroupG2 = 4;
+constexpr int kMaxDevices = 64;
 
-template <int C, int Chunk>
+template <int C, int Chunk, int Group>
 struct Windows {
   static constexpr int kBits = C;
   static constexpr int kHalf = 1 << (C - 1);
   static constexpr int kBins = kHalf + 1;  // |digit| in [0, 2^(c-1)]
   static constexpr int kCount = (254 + C - 1) / C;
   static constexpr int kChunk = Chunk;
+  static constexpr int kGroup = Group;
+  static constexpr int kGroups = (kCount + Group - 1) / Group;
   static_assert(Chunk % (32 * kScatterWarps) == 0, "warp ranges of 32s");
+  static_assert(Chunk % (2 * kRecodeThreads) == 0, "pairs of rows a thread");
+  static_assert(Chunk / kRecodeThreads <= 32, "a thread's mask in a word");
   static_assert(Chunk < 65536, "16-bit counters a warp");
   static_assert(kHalf < 32768, "|digit| below the sign bit");
 };
-using WindowsG1 = Windows<13, kChunkG1>;  // 20 windows, 4,097 bins
-using WindowsG2 = Windows<10, kChunkG2>;  // 26 windows, 513 bins
+using WindowsG1 = Windows<13, kChunkG1, kGroupG1>;  // 20 windows, 4,097 bins
+using WindowsG2 = Windows<10, kChunkG2, kGroupG2>;  // 26 windows, 513 bins
 
 __device__ __forceinline__ int32_t warp_inclusive(int32_t x) {
   const int lane = threadIdx.x & 31;
@@ -184,99 +214,264 @@ __device__ void smem_exclusive_scan(int32_t* a, int n, int32_t* warp_sums) {
   __syncthreads();
 }
 
-// -- 1. recode and block histograms ------------------------------------------
+// -- 1. recode, block histograms and their scan, one launch ------------------
 
+// The raw c-bit digit of window `win` of a scalar's words w[0..8) (w[8]
+// = 0: the top window reaches past bit 255).
 template <class P>
-__global__ void __launch_bounds__(kRecodeThreads)
-msm_recode_kernel(const int64_t* __restrict__ sc, uint16_t* __restrict__ packed,
-                  int n) {
-  const int i = blockIdx.x * kRecodeThreads + threadIdx.x;
-  if (i >= n) return;
-  const longlong2* row = reinterpret_cast<const longlong2*>(sc) + (size_t)i * 8;
-  uint32_t w[9];
+__device__ __forceinline__ uint32_t raw_digit(const uint32_t (&w)[9],
+                                              int win) {
+  const int bit = P::kBits * win, k = bit / 32, s = bit % 32;
+  uint32_t raw = w[k] >> s;
+  if (s + P::kBits > 32) raw |= w[k + 1] << (32 - s);
+  return raw & ((1u << P::kBits) - 1);
+}
+
+// The signed recode of window `win`, the carry in and out of `carry`:
+// |digit| | sign << 15.
+template <class P>
+__device__ __forceinline__ uint32_t recode_digit(const uint32_t (&w)[9],
+                                                 int win, uint32_t& carry) {
+  const uint32_t d = raw_digit<P>(w, win) + carry;
+  carry = d > (uint32_t)P::kHalf;
+  const uint32_t mag = carry ? 2 * P::kHalf - d : d;
+  return mag | carry << 15;
+}
+
+// The carry into window W, by lookahead: a window whose raw digit is
+// above 2^(c-1) carries out whatever comes in, one below never does, one
+// equal passes its carry on; so the nearest window below W whose raw
+// digit is not 2^(c-1) decides (almost always W - 1), none: no carry.
+template <class P, int W>
+__device__ __forceinline__ uint32_t carry_into(const uint32_t (&w)[9]) {
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const longlong2 v = __ldg(row + k);
-    w[k] = (uint32_t)v.x | ((uint32_t)v.y << 16);
+  for (int win = W - 1; win >= 0; --win) {
+    const uint32_t raw = raw_digit<P>(w, win);
+    if (raw != (uint32_t)P::kHalf) return raw > (uint32_t)P::kHalf;
   }
-  w[8] = 0;  // the top window reaches past bit 255
-  uint32_t carry = 0;
+  return 0;
+}
+
+// The scalar of row i if `read`, else zero words: nothing is read.
+__device__ __forceinline__ void load_scalar(const uint4* __restrict__ words,
+                                            int i, bool read, uint32_t (&w)[9]) {
+  uint4 lo = make_uint4(0, 0, 0, 0), hi = lo;
+  if (read) {
+    lo = __ldg(words + 2 * (size_t)i);
+    hi = __ldg(words + 2 * (size_t)i + 1);
+  }
+  w[0] = lo.x, w[1] = lo.y, w[2] = lo.z, w[3] = lo.w;
+  w[4] = hi.x, w[5] = hi.y, w[6] = hi.z, w[7] = hi.w;
+  w[8] = 0;
+}
+
+// One item: block `blk` of kChunk rows, the windows of group Grp. The
+// block's threads take pairs of rows (2 t + 2 NT j, + 1), find each
+// scalar's carry into the group's first window by lookahead, recode the
+// group's windows in order, store each window's pair of digits as one
+// word of packed and count its |digit| in the window's shared histogram
+// (a warp's zeros with one atomic). Rows the mask sets and rows from n
+// on hold zero scalars, their words never read; the latter's packed
+// digits are stored as zero words and added to bin 0 at once. Then the
+// histograms go to the block's row of offsets (counts, scanned later).
+template <class P, int Grp>
+__device__ void recode_item(const uint4* __restrict__ words,
+                            const uint8_t* __restrict__ mask,
+                            uint32_t* __restrict__ packed,
+                            int32_t* __restrict__ offsets, int32_t* hist,
+                            int n, int rows, int nblk, int blk) {
+  constexpr int B = P::kBins, G = P::kGroup, NT = kRecodeThreads;
+  constexpr int w0 = Grp * G;
+  constexpr int w1 = w0 + G < P::kCount ? w0 + G : P::kCount;
+  const int lo = blk * P::kChunk, hi = min(rows, lo + P::kChunk);
+  const int live_hi = max(lo, min(hi, n));
+  const int lane = threadIdx.x & 31;
+  for (int k = threadIdx.x; k < G * B; k += NT) hist[k] = 0;
+  __syncthreads();
+  if (threadIdx.x == 0 && hi > live_hi)
+    for (int win = w0; win < w1; ++win)
+      atomicAdd(&hist[(win - w0) * B], hi - live_hi);
+  // the mask of this thread's rows first, all its loads at once: bit 2 j
+  // + s for row lo + 2 (t + NT j) + s, so no load of words waits on one
+  // of the mask
+  uint32_t masked = 0;
+  if (mask)
+    for (int j = 0, i = lo + 2 * threadIdx.x; i < live_hi; ++j, i += 2 * NT)
+      masked |= (uint32_t)mask[i] << 2 * j |
+                (uint32_t)(i + 1 < live_hi && mask[i + 1]) << (2 * j + 1);
+  for (int i0 = lo; i0 < live_hi; i0 += 2 * NT) {  // uniform over the block
+    const int i = i0 + 2 * threadIdx.x;
+    const bool live0 = i < live_hi, live1 = i + 1 < live_hi;
+    uint32_t wa[9], wb[9];
+    load_scalar(words, i, live0 && !(masked & 1), wa);
+    load_scalar(words, i + 1, live1 && !(masked & 2), wb);
+    masked >>= 2;
+    uint32_t ca = carry_into<P, w0>(wa), cb = carry_into<P, w0>(wb);
 #pragma unroll
-  for (int win = 0; win < P::kCount; ++win) {
-    constexpr uint32_t mask = (1u << P::kBits) - 1;
-    const int bit = P::kBits * win, k = bit / 32, s = bit % 32;
-    uint32_t raw = w[k] >> s;
-    if (s + P::kBits > 32) raw |= w[k + 1] << (32 - s);
-    const uint32_t d = (raw & mask) + carry;
-    carry = d > (uint32_t)P::kHalf;
-    const uint32_t mag = carry ? 2 * P::kHalf - d : d;
-    packed[(size_t)win * n + i] = (uint16_t)(mag | carry << 15);
+    for (int win = w0; win < w1; ++win) {
+      const uint32_t da = recode_digit<P>(wa, win, ca);
+      const uint32_t db = recode_digit<P>(wb, win, cb);
+      if (i < hi) packed[((size_t)win * rows + i) >> 1] = da | db << 16;
+      const uint32_t ma = da & 0x7fff, mb = db & 0x7fff;
+      const unsigned za = __ballot_sync(~0u, live0 && ma == 0);
+      const unsigned zb = __ballot_sync(~0u, live1 && mb == 0);
+      int32_t* h = hist + (win - w0) * B;
+      if (live0 && ma) atomicAdd(&h[ma], 1);
+      if (live1 && mb) atomicAdd(&h[mb], 1);
+      if (lane == 0 && (za | zb)) atomicAdd(&h[0], __popc(za) + __popc(zb));
+    }
+  }
+  // the padding rows' digits: zero words from the first pair not stored
+  for (int i = ((live_hi + 1) & ~1) + 2 * threadIdx.x; i < hi; i += 2 * NT)
+    for (int win = w0; win < w1; ++win)
+      packed[((size_t)win * rows + i) >> 1] = 0;
+  __syncthreads();
+  for (int win = w0; win < w1; ++win) {
+    int32_t* out = offsets + ((size_t)win * nblk + blk) * B;
+    for (int b = threadIdx.x; b < B; b += NT) out[b] = hist[(win - w0) * B + b];
   }
 }
 
-template <class P>
-__global__ void __launch_bounds__(kCountThreads)
-msm_count_kernel(const uint16_t* __restrict__ packed,
-                 int32_t* __restrict__ counts, int n, int nblk) {
-  __shared__ int32_t hist[P::kBins];
-  const int blk = blockIdx.x, win = blockIdx.y, lane = threadIdx.x & 31;
-  for (int b = threadIdx.x; b < P::kBins; b += kCountThreads) hist[b] = 0;
-  __syncthreads();
-  const uint16_t* dig = packed + (size_t)win * n;
-  const int lo = blk * P::kChunk, hi = min(n, lo + P::kChunk);
-  for (int i0 = lo; i0 < hi; i0 += kCountThreads) {  // uniform over the block
-    const int i = i0 + threadIdx.x;
-    const int d = i < hi ? (dig[i] & 0x7fff) : -1;
-    const unsigned zeros = __ballot_sync(~0u, d == 0);
-    if (d > 0) atomicAdd(&hist[d], 1);
-    if (lane == 0 && zeros) atomicAdd(&hist[0], __popc(zeros));
+// recode_item<P, grp> for a group known at run time
+template <class P, int Grp = 0>
+__device__ __forceinline__ void recode_group(
+    int grp, const uint4* __restrict__ words, const uint8_t* __restrict__ mask,
+    uint32_t* __restrict__ packed, int32_t* __restrict__ offsets,
+    int32_t* hist, int n, int rows, int nblk, int blk) {
+  if constexpr (Grp < P::kGroups) {
+    if (grp == Grp)
+      recode_item<P, Grp>(words, mask, packed, offsets, hist, n, rows, nblk,
+                          blk);
+    else
+      recode_group<P, Grp + 1>(grp, words, mask, packed, offsets, hist, n,
+                               rows, nblk, blk);
   }
-  __syncthreads();
-  int32_t* out = counts + ((size_t)win * nblk + blk) * P::kBins;
-  for (int b = threadIdx.x; b < P::kBins; b += kCountThreads) out[b] = hist[b];
 }
 
+// One column of the counts, (window, bin) = col: each block's count
+// becomes, in place, its exclusive prefix over the blocks; the column's
+// sum goes to totals[col]. The counts were written by other blocks of
+// this launch: read through L2 (ld.global.cg), never the L1.
 template <class P>
-int launch_recode(const void* sc, void* packed, void* counts, int n, int nblk,
-                  void* stream) {
-  if (n < 0 || nblk != (n + P::kChunk - 1) / P::kChunk)
-    return (int)cudaErrorInvalidValue;
-  if (n == 0) return 0;
-  const cudaStream_t s = (cudaStream_t)stream;
-  msm_recode_kernel<P><<<(n + kRecodeThreads - 1) / kRecodeThreads,
-                         kRecodeThreads, 0, s>>>((const int64_t*)sc,
-                                                 (uint16_t*)packed, n);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  msm_count_kernel<P><<<dim3(nblk, P::kCount), kCountThreads, 0, s>>>(
-      (const uint16_t*)packed, (int32_t*)counts, n, nblk);
-  return (int)cudaGetLastError();
-}
-
-// -- 2. offsets ---------------------------------------------------------------
-
-__global__ void __launch_bounds__(kScanThreads)
-msm_scan_kernel(int32_t* __restrict__ counts, int32_t* __restrict__ totals,
-                int nblk, int bins) {
-  const int bin = blockIdx.x * kScanThreads + threadIdx.x, win = blockIdx.y;
-  if (bin >= bins) return;
-  int32_t* c = counts + (size_t)win * nblk * bins + bin;
+__device__ __forceinline__ void scan_column(int32_t* __restrict__ offsets,
+                                            int32_t* __restrict__ totals,
+                                            int nblk, int col) {
+  constexpr int B = P::kBins;
+  const int win = col / B, bin = col - win * B;
+  int32_t* c = offsets + (size_t)win * nblk * B + bin;
   int32_t run = 0;
   for (int b0 = 0; b0 < nblk; b0 += 16) {  // 16 loads in flight, then stores
     int32_t v[16];
 #pragma unroll
     for (int k = 0; k < 16; ++k)
-      v[k] = b0 + k < nblk ? c[(size_t)(b0 + k) * bins] : 0;
+      v[k] = b0 + k < nblk ? __ldcg(c + (size_t)(b0 + k) * B) : 0;
 #pragma unroll
     for (int k = 0; k < 16; ++k) {
-      if (b0 + k < nblk) c[(size_t)(b0 + k) * bins] = run;
+      if (b0 + k < nblk) c[(size_t)(b0 + k) * B] = run;
       run += v[k];
     }
   }
-  totals[(size_t)win * bins + bin] = run;
+  totals[col] = run;
 }
 
-// -- 3. stable scatter --------------------------------------------------------
+// The recode's items (block of rows, window group), group fastest, so a
+// block's groups run side by side and share its words in L2; a block of
+// threads walks items from blockIdx.x by gridDim.x. Then, after a
+// grid-wide barrier (a cooperative launch: every block is resident), the
+// scan of the counts over the blocks, one column a thread of the grid.
+template <class P>
+__global__ void __launch_bounds__(kRecodeThreads)
+msm_recode_kernel(const uint4* __restrict__ words,
+                  const uint8_t* __restrict__ mask,
+                  uint32_t* __restrict__ packed, int32_t* __restrict__ offsets,
+                  int32_t* __restrict__ totals, int n, int rows, int nblk) {
+  constexpr int NT = kRecodeThreads;
+  extern __shared__ int32_t hist[];  // kGroup x kBins
+  const int items = nblk * P::kGroups;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int blk = it / P::kGroups, grp = it - blk * P::kGroups;
+    recode_group<P>(grp, words, mask, packed, offsets, hist, n, rows, nblk,
+                    blk);
+    __syncthreads();
+  }
+  cooperative_groups::this_grid().sync();
+  for (int col = blockIdx.x * NT + threadIdx.x; col < P::kCount * P::kBins;
+       col += gridDim.x * NT)
+    scan_column<P>(offsets, totals, nblk, col);
+}
+
+template <class P>
+constexpr size_t recode_smem() {
+  return (size_t)P::kGroup * P::kBins * sizeof(int32_t);
+}
+
+// resident blocks an SM of the recode instance on the current card, its
+// shared memory allowed first; -1 on a failure
+template <class P>
+int recode_blocks_per_sm() {
+  constexpr size_t smem = recode_smem<P>();
+  auto* fn = msm_recode_kernel<P>;
+  if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess)
+    return -1;
+  int per_sm = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
+                                                    kRecodeThreads, smem) !=
+      cudaSuccess)
+    return -1;
+  return per_sm;
+}
+
+// per card: its SMs, and a recode instance's resident blocks an SM (0:
+// not asked yet). Internal linkage: a function's static locals in a
+// template would be one object in the whole process (GNU unique
+// symbols), shared with another build of this library loaded beside it.
+static int g_sms[kMaxDevices];
+template <class P>
+static int g_recode_per_sm[kMaxDevices];
+
+template <class P>
+int launch_recode(const void* words, const void* mask, void* packed,
+                  void* offsets, void* totals, int n, int rows, int nblk,
+                  void* stream) {
+  if (n < 0 || rows < n || rows % 2 ||
+      nblk != (rows + P::kChunk - 1) / P::kChunk)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!g_recode_per_sm<P>[dev]) {
+    err = cudaDeviceGetAttribute(&g_sms[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (err != cudaSuccess) return (int)err;
+    g_recode_per_sm<P>[dev] = recode_blocks_per_sm<P>();
+  }
+  const int per_sm = g_recode_per_sm<P>[dev];
+  if (per_sm < 1) {
+    g_recode_per_sm<P>[dev] = 0;
+    err = cudaGetLastError();
+    return err != cudaSuccess ? (int)err : (int)cudaErrorInvalidConfiguration;
+  }
+  const uint4* w = (const uint4*)words;
+  const uint8_t* m = (const uint8_t*)mask;
+  uint32_t* pk = (uint32_t*)packed;
+  int32_t* off = (int32_t*)offsets;
+  int32_t* tot = (int32_t*)totals;
+  const int items = nblk * P::kGroups;
+  constexpr size_t smem = recode_smem<P>();
+  void* args[] = {&w, &m, &pk, &off, &tot, &n, &rows, &nblk};
+  const int resident = per_sm * g_sms[dev];
+  err = cudaLaunchCooperativeKernel((const void*)msm_recode_kernel<P>,
+                                    items < resident ? items : resident,
+                                    kRecodeThreads, args, smem,
+                                    (cudaStream_t)stream);
+  const cudaError_t last = cudaGetLastError();  // taken, not left behind
+  return (int)(err != cudaSuccess ? err : last);
+}
+
+// -- 2. stable scatter --------------------------------------------------------
 
 // The lanes of the warp whose d equals this lane's, from one ballot a bit
 // of d (d < 2^Bits; the end sentinel kBins fits): the AND of the ballots
@@ -536,7 +731,7 @@ int launch_scatter(const void* packed, const void* offsets, const void* totals,
   return (int)cudaGetLastError();
 }
 
-// -- 4. compaction ------------------------------------------------------------
+// -- 3. compaction ------------------------------------------------------------
 
 // the count grid: a thread a lane, its live emissions
 __global__ void __launch_bounds__(kCompactThreads)
@@ -661,32 +856,22 @@ int launch_compact(const void* edig, const void* ept, void* scratch,
 
 }  // namespace inf
 
-// sc (n, 16) int64 standard-form limbs -> packed (nwin, n) uint16, counts
-// (nwin, nblk, bins) int32; nblk = ceil(n / chunk)
-extern "C" int inf_msm_recode_g1(const void* sc, void* packed, void* counts,
-                                 int n, int nblk, void* stream) {
-  return inf::launch_recode<inf::WindowsG1>(sc, packed, counts, n, nblk,
-                                            stream);
+// words (n, 8) int32 standard-form scalars, mask (>= n) bool or null (true:
+// the row's scalar is zero), rows >= n, even -> packed (nwin, rows) uint16,
+// offsets (nwin, nblk, bins) int32 (each block's counts scanned over the
+// blocks), totals (nwin, bins); nblk = ceil(rows / chunk)
+extern "C" int inf_msm_recode_g1(const void* words, const void* mask,
+                                 void* packed, void* offsets, void* totals,
+                                 int n, int rows, int nblk, void* stream) {
+  return inf::launch_recode<inf::WindowsG1>(words, mask, packed, offsets,
+                                            totals, n, rows, nblk, stream);
 }
 
-extern "C" int inf_msm_recode_g2(const void* sc, void* packed, void* counts,
-                                 int n, int nblk, void* stream) {
-  return inf::launch_recode<inf::WindowsG2>(sc, packed, counts, n, nblk,
-                                            stream);
-}
-
-// counts (nwin, nblk, bins) -> their exclusive prefix over the blocks, in
-// place; totals (nwin, bins)
-extern "C" int inf_msm_scan(void* counts, void* totals, int nwin, int nblk,
-                            int bins, void* stream) {
-  if (nwin < 0 || nblk < 0 || bins < 1) return (int)cudaErrorInvalidValue;
-  if (nwin == 0) return 0;
-  inf::msm_scan_kernel<<<dim3((bins + inf::kScanThreads - 1) /
-                                  inf::kScanThreads,
-                              nwin),
-                         inf::kScanThreads, 0, (cudaStream_t)stream>>>(
-      (int32_t*)counts, (int32_t*)totals, nblk, bins);
-  return (int)cudaGetLastError();
+extern "C" int inf_msm_recode_g2(const void* words, const void* mask,
+                                 void* packed, void* offsets, void* totals,
+                                 int n, int rows, int nblk, void* stream) {
+  return inf::launch_recode<inf::WindowsG2>(words, mask, packed, offsets,
+                                            totals, n, rows, nblk, stream);
 }
 
 // packed, the scanned counts and totals -> sdig, ssgn, order (nwin, n) int32
@@ -723,8 +908,16 @@ extern "C" int inf_msm_compact_g2(const void* edig, const void* ept,
                                  K, stream);
 }
 
-// resident blocks an SM of the scatter instance for each curve on the
-// current card (-1 on a failure)
+// resident blocks an SM of the recode and scatter instances for each curve
+// on the current card (-1 on a failure)
+extern "C" int inf_msm_recode_blocks_per_sm_g1() {
+  return inf::recode_blocks_per_sm<inf::WindowsG1>();
+}
+
+extern "C" int inf_msm_recode_blocks_per_sm_g2() {
+  return inf::recode_blocks_per_sm<inf::WindowsG2>();
+}
+
 extern "C" int inf_msm_scatter_blocks_per_sm_g1() {
   return inf::scatter_blocks_per_sm<inf::WindowsG1>();
 }

@@ -13,8 +13,10 @@ same randomness and the same proofs:
     2^18: the rows, then a tile and a pass for each transform) and their
     plain versions on the CPU; the five MSMs
     (a, b1, l, h over G1 and b2 over G2) dispatched before any host wait,
-    through the CUDA MSM kernels on a card; the proof assembled on the
-    host (`prove_queries`, which groth16/zkey.py's prove_zkey shares).
+    through the CUDA MSM kernels on a card, each recode reading the
+    witness's (or h's) standard-form words as they are; the proof
+    assembled on the host (`prove_queries`, which groth16/zkey.py's
+    prove_zkey shares).
     Its four stages (`h_dispatch`, `witness_limbs`, `msm_dispatch`,
     `msm_wait`) are recorded in LAST_PROVE_TRACE, with no sync between
     them. `h_rows_plain` / `ab_minus_c_plain` are the H stage's plain
@@ -39,7 +41,7 @@ from ..curve.bn254_host import (
 from ..curve.proj import G1_DEV, G2_DEV, CurveDev
 from ..ff.bn254 import FR_MOD, batch_inv_mod, fr_inv
 from ..ff.fp import (
-    FR_CTX, NLIMBS, device_key, limbs_to_words, tensor_to_ints,
+    FR_CTX, device_key, limbs_to_words, tensor_to_ints,
     words_to_limbs,
 )
 from ..msm.fixed_base import fixed_base_mul_batch
@@ -252,17 +254,22 @@ def ab_minus_c_plain(abc: torch.Tensor, logm: int, g: int,
     return FR_CTX.from_mont(out)
 
 
-def h_rows(cs: ConstraintSystem, witness, device) -> torch.Tensor:
-    """(m, 16) standard-form limbs of h's coefficients on `device`: the
-    h-MSM's scalars. Row m-1 must be zero (the caller's degree gate).
-    `witness` is a list of ints or its standard-form words on `device`
-    (`rowval.ints_to_words`), converted once a prove."""
+def h_words(cs: ConstraintSystem, witness, device) -> torch.Tensor:
+    """(m, 8) standard-form words of h's coefficients on `device`: the
+    h-MSM's scalars as the recode reads them. Row m-1 must be zero (the
+    caller's degree gate). `witness` is a list of ints or its
+    standard-form words on `device` (`rowval.ints_to_words`), converted
+    once a prove."""
     m = _domain_size(cs)
     if not isinstance(witness, torch.Tensor):
         witness = ints_to_words(witness, device)
     abc = rows_words(sparse_rows(cs, device), witness, m)
-    return words_to_limbs(ab_minus_c(abc, m.bit_length() - 1, COSET_GEN,
-                                     divide_z=True))
+    return ab_minus_c(abc, m.bit_length() - 1, COSET_GEN, divide_z=True)
+
+
+def h_rows(cs: ConstraintSystem, witness, device) -> torch.Tensor:
+    """`h_words` as (m, 16) standard-form limbs."""
+    return words_to_limbs(h_words(cs, witness, device))
 
 
 def h_rows_plain(cs: ConstraintSystem, witness: list[int],
@@ -307,26 +314,24 @@ def _query_encoding(pk: ProvingKey, name: str, points, curve: CurveDev,
 
 def _msm_inputs(pk: ProvingKey, name: str, points, scalars: torch.Tensor,
                 curve: CurveDev = G1_DEV):
-    """(words, scalars, lanes) of one query's MSM on the scalars' device:
-    the query's encoded table, and `scalars` ((n, 16) standard-form limbs)
-    padded with zeros to its rows, zero at its infinity points."""
+    """(words, scalars, mask, lanes) of one query's MSM on the scalars'
+    device: the query's encoded table, `scalars` as given ((n, 8)
+    standard-form words, or (n, 16) limbs), and its infinity mask. No copy
+    of the scalars is made: the recode reads rows n and above, and those
+    the mask sets, as zero scalars."""
     words, none_mask, lanes = _query_encoding(pk, name, points, curve,
                                               scalars.device)
-    n = scalars.shape[0]
-    sc = torch.zeros((words.shape[0], NLIMBS), dtype=torch.int64,
-                     device=scalars.device)
-    sc[:n] = torch.where(none_mask[:n].unsqueeze(-1), 0, scalars)
-    return words, sc, lanes
+    return words, scalars, none_mask, lanes
 
 
 def _msm_async(pk: ProvingKey, name: str, points, scalars: torch.Tensor,
                curve: CurveDev = G1_DEV):
     """Dispatch one query's MSM without a host wait; `pk` is a ProvingKey
-    or a ZkeyData, `scalars` (n, 16) standard-form limbs on the query's
-    device. Returns a closure that waits and combines the window sums into
-    the affine result."""
-    words, sc, lanes = _msm_inputs(pk, name, points, scalars, curve)
-    wins = msm_rows_async(words, sc, lanes, curve.name)
+    or a ZkeyData, `scalars` (n, 8) standard-form words (or (n, 16) limbs)
+    on the query's device. Returns a closure that waits and combines the
+    window sums into the affine result."""
+    words, sc, mask, lanes = _msm_inputs(pk, name, points, scalars, curve)
+    wins = msm_rows_async(words, sc, lanes, curve.name, mask=mask)
     return lambda: combine_window_points(wins.cpu(), curve.name)
 
 
@@ -336,10 +341,11 @@ def prove_queries(key, queries, h_scalars, witness: list[int], npub: int,
     or a ZkeyData) holds alpha_g1, beta_g1, beta_g2, delta_g1, delta_g2
     and the queries' cached encodings; `queries` is the (name, points) of
     its a, b1, b2 (G2), c and h queries; `h_scalars(w)` gives the h-MSM's
-    scalars and a row that must be zero (the degree gate), or None, from
-    the witness's standard-form words on `device`. The witness is
-    converted once, at the start of `h_dispatch`, and shared by the rows
-    and the MSMs. Draws r, s from `rng` first, records its stages in
+    scalars (standard-form words) and a row that must be zero (the degree
+    gate), or None, from the witness's standard-form words on `device`.
+    The witness is converted once, at the start of `h_dispatch`, and its
+    words are shared by the rows and the MSMs, which read them as they
+    are. Draws r, s from `rng` first, records its stages in
     LAST_PROVE_TRACE."""
     global LAST_PROVE_TRACE
     sw = Stopwatch()
@@ -354,12 +360,15 @@ def prove_queries(key, queries, h_scalars, witness: list[int], npub: int,
         w_words = ints_to_words(witness, device)
         h, gate = h_scalars(w_words)
     with sw.stage("witness_limbs"):
-        w = words_to_limbs(w_words)
+        # the MSMs read the witness's words as they are (the recode pads
+        # and masks them): the stage keeps its name, and holds the c
+        # query's slice of them
+        w_c = w_words[npub:]
     with sw.stage("msm_dispatch"):
-        a_fin = _msm_async(key, *a_q, w)
-        b2_fin = _msm_async(key, *b2_q, w, G2_DEV)
-        b1_fin = _msm_async(key, *b1_q, w)
-        c_fin = _msm_async(key, *c_q, w[npub:])
+        a_fin = _msm_async(key, *a_q, w_words)
+        b2_fin = _msm_async(key, *b2_q, w_words, G2_DEV)
+        b1_fin = _msm_async(key, *b1_q, w_words)
+        c_fin = _msm_async(key, *c_q, w_c)
         h_fin = _msm_async(key, *h_q, h)
     with sw.stage("msm_wait"):
         # degree gate: one row read back, queued behind the MSM dispatches
@@ -389,7 +398,7 @@ def prove(pk: ProvingKey, cs: ConstraintSystem, witness: list[int],
     m = _domain_size(cs)
 
     def h_scalars(w_words):
-        h = h_rows(cs, w_words, device)
+        h = h_words(cs, w_words, device)
         return h[:m - 1], h[m - 1]
 
     return prove_queries(

@@ -130,18 +130,24 @@ def _zkey_logm(zk: ZkeyData) -> int:
     return logm
 
 
-def odd_coset_rows(zk: ZkeyData, witness, device) -> torch.Tensor:
-    """(m, 16) standard-form limbs of P = a.b - c on the odd coset
+def odd_coset_words(zk: ZkeyData, witness, device) -> torch.Tensor:
+    """(m, 8) standard-form words of P = a.b - c on the odd coset
     {eta w^i} on `device`: the h-MSM's scalars against the zkey's H
-    points. `witness` is a list of ints or its standard-form words on
-    `device` (`rowval.ints_to_words`). On a card: the row launch, then
-    `ab_minus_c`'s kernels, whose first tile gathers c = a.b."""
+    points, as the recode reads them. `witness` is a list of ints or its
+    standard-form words on `device` (`rowval.ints_to_words`). On a card:
+    the row launch, then `ab_minus_c`'s kernels, whose first tile gathers
+    c = a.b."""
     logm = _zkey_logm(zk)
     if not isinstance(witness, torch.Tensor):
         witness = ints_to_words(witness, device)
     ab = rows_words(zkey_rows(zk, device), witness, 1 << logm)
-    return words_to_limbs(ab_minus_c(ab, logm, _root_of_unity(2 << logm),
-                                     divide_z=False, mode=AB))
+    return ab_minus_c(ab, logm, _root_of_unity(2 << logm), divide_z=False,
+                      mode=AB)
+
+
+def odd_coset_rows(zk: ZkeyData, witness, device) -> torch.Tensor:
+    """`odd_coset_words` as (m, 16) standard-form limbs."""
+    return words_to_limbs(odd_coset_words(zk, witness, device))
 
 
 def odd_coset_rows_plain(zk: ZkeyData, witness: list[int],
@@ -166,5 +172,5 @@ def prove_zkey(zk: ZkeyData, witness: list[int],
     return prove_queries(
         zk, (("a", zk.a_query), ("b1", zk.b1_query), ("b2", zk.b2_query),
              ("c", zk.c_query), ("h", zk.h_query)),
-        lambda w_words: (odd_coset_rows(zk, w_words, device), None),
+        lambda w_words: (odd_coset_words(zk, w_words, device), None),
         witness, zk.n_public + 1, rng, device)

@@ -13,11 +13,11 @@ goes to the card its tensors lie on, with that card current, whichever
 card the calling thread had current.
 
 `Kernel.launches` counts the launches of one kernel instance (an MSM
-kernel for one curve, the MSM layout's recode, scan and scatter and its
-compaction, the Poseidon permutation for every width, its measured
-variants apart; the H pipeline's row evaluation, NTT tile and pass
-launches and pointwise step), so a run can show that its main path went
-through the kernel. Nothing here is
+kernel for one curve, the MSM layout's recode (its scan in the same
+launch) and scatter and its compaction, the Poseidon permutation for
+every width, its measured variants apart; the H pipeline's row
+evaluation, NTT tile and pass launches and pointwise step), so a run can
+show that its main path went through the kernel. Nothing here is
 imported or built unless a CUDA tensor reaches a kernel wrapper.
 """
 
@@ -54,7 +54,8 @@ class Kernel:
 
     def __call__(self, *args):
         """Launch on the tensors' card, on its current stream; `args` are
-        tensors then ints. The tensors must all lie on one card."""
+        tensors (None for a null pointer) then ints. The tensors must all
+        lie on one card."""
         devices = {a.device for a in args if isinstance(a, torch.Tensor)}
         if len(devices) != 1 or next(iter(devices)).type != "cuda":
             raise ValueError(f"{self.symbol}: want tensors on one card, got "
@@ -75,9 +76,8 @@ KERNELS = {
     "msm_accum_g2": Kernel("inf_msm_accum_g2", 6, 3),
     "msm_weighted_g1": Kernel("inf_msm_weighted_g1", 4, 2),
     "msm_weighted_g2": Kernel("inf_msm_weighted_g2", 4, 2),
-    "msm_recode_g1": Kernel("inf_msm_recode_g1", 3, 2),
-    "msm_recode_g2": Kernel("inf_msm_recode_g2", 3, 2),
-    "msm_scan": Kernel("inf_msm_scan", 2, 3),
+    "msm_recode_g1": Kernel("inf_msm_recode_g1", 5, 3),
+    "msm_recode_g2": Kernel("inf_msm_recode_g2", 5, 3),
     "msm_scatter_g1": Kernel("inf_msm_scatter_g1", 6, 2),
     "msm_scatter_g2": Kernel("inf_msm_scatter_g2", 6, 2),
     "msm_compact_g1": Kernel("inf_msm_compact_g1", 5, 4),
@@ -205,6 +205,13 @@ def accum_occupancy(curve: str) -> tuple[int, int]:
     calculator)."""
     return (query("inf_msm_accum_block"),
             query(f"inf_msm_accum_blocks_per_sm_{curve}"))
+
+
+def recode_blocks_per_sm(curve: str) -> int:
+    """Resident blocks an SM of the MSM layout's recode instance for
+    `curve` on the current card (CUDA's occupancy calculator, its shared
+    memory allowed): its cooperative grid is at most this times the SMs."""
+    return query(f"inf_msm_recode_blocks_per_sm_{curve}")
 
 
 def scatter_blocks_per_sm(curve: str) -> int:

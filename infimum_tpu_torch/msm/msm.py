@@ -3,11 +3,14 @@
 Counterpart of `infimum_tpu/msm/pallas_msm.py:403-553`. Per window, with
 all windows batched into each launch:
 
-  1. kernels `msm_recode`, `msm_scan`, `msm_scatter` (csrc/msm_layout.cu,
-     `lane_layout`): signed c-bit recode of the scalars with per-block
-     |digit| histograms, their offsets, and a stable counting sort of each
-     window by |digit| with the signs and the entries' rows; lane l owns
-     the sorted range [l*T, (l+1)*T). No copy of the points is made.
+  1. kernels `msm_recode`, `msm_scatter` (csrc/msm_layout.cu,
+     `lane_layout`): in one launch from the scalars' standard-form words,
+     their signed c-bit recode with per-block |digit| histograms and
+     their offsets (padding rows and the query's infinity points recode
+     as zero digits, unread); then a stable counting sort of each window
+     by |digit| with the signs and the entries' rows; lane l owns the
+     sorted range [l*T, (l+1)*T). No copy of the points or the scalars is
+     made.
   2. kernel `msm_accum` (csrc/msm_accum.cu): run-emission accumulation.
      It reads each entry's affine point from the row-major (N, AW) table
      through the sort's order. Its emissions are the reference's: (nwin,
@@ -53,7 +56,8 @@ class CurveSpec:
     the accumulation kernel reads; a projective point (an emission, a
     window sum) is PR limbs or PW words, X, Y, Z."""
 
-    def __init__(self, name: str, c_bits: int, chunk: int, layout_chunk: int):
+    def __init__(self, name: str, c_bits: int, chunk: int, layout_chunk: int,
+                 recode_group: int):
         self.name = name
         self.curve = CURVES[name]
         self.c_bits = c_bits
@@ -61,6 +65,8 @@ class CurveSpec:
         # entries a block of the layout's histograms and scatter: = kChunkG1
         # / kChunkG2, msm_layout.cu
         self.layout_chunk = layout_chunk
+        # windows a recode item counts: = kGroupG1 / kGroupG2, msm_layout.cu
+        self.recode_group = recode_group
         self.n_buckets = 1 << (c_bits - 1)
         self.n_windows = -(-254 // c_bits)
         self.RF = NLIMBS * (2 if name == "g2" else 1)  # 16-bit limbs per coord
@@ -68,8 +74,8 @@ class CurveSpec:
         self.AW, self.PW = self.AF // 2, self.PR // 2
 
 
-G1_SPEC = CurveSpec("g1", 13, 8, 8192)      # 20 windows
-G2_SPEC = CurveSpec("g2", 10, 4, 4096)      # 26 windows
+G1_SPEC = CurveSpec("g1", 13, 8, 8192, 4)   # 20 windows
+G2_SPEC = CurveSpec("g2", 10, 4, 4096, 4)   # 26 windows
 SPECS = {"g1": G1_SPEC, "g2": G2_SPEC}
 
 
@@ -138,33 +144,65 @@ def layout_blocks(n: int, spec: CurveSpec) -> int:
     return -(-n // spec.layout_chunk)
 
 
-def layout_recode(sc, spec: CurveSpec):
-    """(N, 16) int64 standard-form scalar limbs, reduced mod r -> packed
-    (nwin, N) int16 digits, |digit| | sign << 15 (the bit pattern of
-    uint16), and counts (nwin, nblk, bins) int32: each window's |digit|
-    per block of `spec.layout_chunk` entries, bins = 2^(c-1) + 1."""
+def padded_limbs(sc, rows: int, mask=None) -> torch.Tensor:
+    """(rows, 16) int64 limbs of a query's scalars: `sc` ((n, 8) words or
+    (n, 16) limbs, n <= rows) above zero rows, zero where `mask` (a bool
+    of at least n rows: the query's infinity points) is set."""
     n = sc.shape[0]
-    nblk = layout_blocks(n, spec)
+    limbs = words_to_limbs(sc) if sc.dtype == torch.int32 else sc
+    if n == rows and mask is None:
+        return limbs
+    out = torch.zeros((rows, NLIMBS), dtype=torch.int64, device=sc.device)
+    out[:n] = limbs if mask is None else torch.where(
+        mask[:n].unsqueeze(-1), 0, limbs)
+    return out
+
+
+def layout_recode(sc, spec: CurveSpec, rows=None, mask=None):
+    """A query's scalars, reduced mod r, as (n, 8) int32 standard-form
+    words or (n, 16) int64 limbs, for `rows` >= n table rows (default n;
+    rows n and above hold zero scalars) with `mask` an optional bool of at
+    least n rows (the query's infinity points: their scalars count as
+    zero) -> packed (nwin, rows) int16 digits, |digit| | sign << 15 (the
+    bit pattern of uint16); offsets (nwin, nblk, bins) int32, each block's
+    count of each |digit| in its window (blocks of `spec.layout_chunk`
+    rows, bins = 2^(c-1) + 1) scanned exclusively over the blocks; and
+    totals (nwin, bins) int32, each bin's count in its window. On the
+    card one launch from the words (limbs converted first)."""
+    n = sc.shape[0]
+    rows = n if rows is None else rows
+    nblk = layout_blocks(rows, spec)
     if sc.device.type == "cuda":
-        _check(sc, (n, NLIMBS), "sc", torch.int64)
-        if sc.data_ptr() % 16:
+        words = as_words(sc, NLIMBS // 2)
+        _check(words, (n, NLIMBS // 2), "sc")
+        if words.data_ptr() % 16:
             raise ValueError("sc: the kernel reads 16-byte vectors")
-        packed = torch.empty((spec.n_windows, n), dtype=torch.int16,
+        if rows < n or rows % 2:
+            raise ValueError(f"{rows} rows: want an even count >= {n}")
+        if mask is not None and (mask.dtype != torch.bool or mask.dim() != 1
+                                 or not mask.is_contiguous()
+                                 or mask.shape[0] < n):
+            raise ValueError(f"mask: want a contiguous bool of >= {n} rows")
+        packed = torch.empty((spec.n_windows, rows), dtype=torch.int16,
                              device=sc.device)
-        counts = torch.empty((spec.n_windows, nblk, spec.n_buckets + 1),
+        offsets = torch.empty((spec.n_windows, nblk, spec.n_buckets + 1),
+                              dtype=torch.int32, device=sc.device)
+        totals = torch.empty((spec.n_windows, spec.n_buckets + 1),
                              dtype=torch.int32, device=sc.device)
-        kernels.KERNELS[f"msm_recode_{spec.name}"](sc, packed, counts, n,
-                                                   nblk)
-        return packed, counts
+        kernels.KERNELS[f"msm_recode_{spec.name}"](
+            words, mask, packed, offsets, totals, n, rows, nblk)
+        return packed, offsets, totals
     if sc.device.type != "cpu":
         raise ValueError(f"no msm_recode kernel for {sc.device}")
-    return layout_recode_plain(sc, spec)
+    packed, counts = layout_recode_plain(sc, spec, rows, mask)
+    return packed, counts, layout_scan_plain(counts)
 
 
-def layout_recode_plain(sc, spec: CurveSpec):
-    """Plain torch version of the recode kernel: `recode`, packed, and a
-    histogram of each (window, block)."""
-    mags, sgns = recode(sc, spec)
+def layout_recode_plain(sc, spec: CurveSpec, rows=None, mask=None):
+    """Plain torch version of the recode kernel's first half, on words or
+    limbs as `layout_recode` takes them: `recode` of the padded, masked
+    limbs, packed, and each (window, block)'s histogram, unscanned."""
+    mags, sgns = recode(padded_limbs(sc, rows or sc.shape[0], mask), spec)
     nwin, n = mags.shape
     bins, nblk = spec.n_buckets + 1, layout_blocks(n, spec)
     blk = torch.arange(n, device=sc.device) // spec.layout_chunk
@@ -175,25 +213,12 @@ def layout_recode_plain(sc, spec: CurveSpec):
             counts.view(nwin, nblk, bins).to(torch.int32))
 
 
-def layout_scan(counts):
-    """counts (nwin, nblk, bins) int32 -> totals (nwin, bins) int32, each
-    bin's count in its window; counts becomes, in place, its exclusive
-    prefix over the blocks: each block's first slot in each bin, counted
-    from the bin's first slot."""
-    nwin, nblk, bins = counts.shape
-    if counts.device.type == "cuda":
-        _check(counts, (nwin, nblk, bins), "counts")
-        totals = torch.empty((nwin, bins), dtype=torch.int32,
-                             device=counts.device)
-        kernels.KERNELS["msm_scan"](counts, totals, nwin, nblk, bins)
-        return totals
-    if counts.device.type != "cpu":
-        raise ValueError(f"no msm_scan kernel for {counts.device}")
-    return layout_scan_plain(counts)
-
-
 def layout_scan_plain(counts):
-    """Plain torch version of the scan kernel, in place as it is."""
+    """Plain torch version of the recode kernel's scan: counts (nwin, nblk,
+    bins) int32 -> totals (nwin, bins) int32, each bin's count in its
+    window; counts becomes, in place, its exclusive prefix over the
+    blocks: each block's first slot in each bin, counted from the bin's
+    first slot."""
     totals = counts.sum(1, dtype=torch.int32)
     counts.copy_(counts.cumsum(1) - counts)
     return totals
@@ -460,60 +485,69 @@ def weighted_sum_plain(cdig, cpts, spec: CurveSpec):
 
 # -- orchestration ------------------------------------------------------------------
 
+def as_words(t, width: int):
+    """The (N, width) int32 words of a tensor given as words (returned as
+    it is) or as (N, 2 width) int64 limbs (converted)."""
+    if t.dtype == torch.int32:
+        if t.dim() != 2 or t.shape[1] != width:
+            raise ValueError(f"want (N, {width}) words, got "
+                             f"{tuple(t.shape)}")
+        return t
+    return limbs_to_words(t)
+
+
 def table_words(rows, spec: CurveSpec):
-    """The (N, AW) int32 words of a table of affine points given as words
-    (returned as they are) or as (N, AF) int64 limbs (converted)."""
-    if rows.dtype == torch.int32:
-        if rows.shape[1:] != (spec.AW,):
-            raise ValueError(f"want (N, {spec.AW}) words, got "
-                             f"{tuple(rows.shape)}")
-        return rows
-    return limbs_to_words(rows)
+    """The (N, AW) words of a table of affine points (`as_words`)."""
+    return as_words(rows, spec.AW)
 
 
-def lane_layout(rows, sc, lanes: int, spec: CurveSpec):
+def lane_layout(rows, sc, lanes: int, spec: CurveSpec, mask=None):
     """Recode and sort each window by |digit|: the accumulation kernel's
     inputs (sdig, ssgn, order, words) for rows (N, AF) limbs or (N, AW)
-    words and scalars (N, 16), N = T * lanes. sdig, ssgn and order are
-    (nwin, L, T) views of the stable sort's (nwin, N) results, lane l
-    owning sorted entries [l*T, (l+1)*T); words is the (N, AW) table of
-    the points, which the kernel reads through order. On the card: the
-    recode, scan and scatter kernels, and words as given."""
-    N = sc.shape[0]
-    if N % lanes or rows.shape[0] != N:
-        raise ValueError(f"{N} rows do not fill {lanes} lanes")
+    words, N = T * lanes, and scalars (n, 8) words or (n, 16) limbs, n <=
+    N, with the query's infinity mask `mask` (see `layout_recode`). sdig,
+    ssgn and order are (nwin, L, T) views of the stable sort's (nwin, N)
+    results, lane l owning sorted entries [l*T, (l+1)*T); words is the
+    (N, AW) table of the points, which the kernel reads through order. On
+    the card: the recode and scatter kernels, and words as given."""
+    N = rows.shape[0]
+    if N % lanes or sc.shape[0] > N:
+        raise ValueError(f"{N} rows do not fill {lanes} lanes or hold "
+                         f"{sc.shape[0]} scalars")
     if sc.device.type == "cuda":
         shape = (spec.n_windows, lanes, N // lanes)
-        packed, counts = layout_recode(sc, spec)
-        totals = layout_scan(counts)
-        sdig, ssgn, order = layout_scatter(packed, counts, totals, spec)
+        packed, offsets, totals = layout_recode(sc, spec, N, mask)
+        sdig, ssgn, order = layout_scatter(packed, offsets, totals, spec)
         return (sdig.view(shape), ssgn.view(shape), order.view(shape),
                 table_words(rows, spec))
     if sc.device.type != "cpu":
         raise ValueError(f"no msm layout kernels for {sc.device}")
-    return lane_layout_plain(rows, sc, lanes, spec)
+    return lane_layout_plain(rows, sc, lanes, spec, mask)
 
 
-def lane_layout_plain(rows, sc, lanes: int, spec: CurveSpec):
-    """Plain torch version of the layout kernels: `recode`, a stable sort
-    of each window and the gather of the signs."""
-    N = sc.shape[0]
+def lane_layout_plain(rows, sc, lanes: int, spec: CurveSpec, mask=None):
+    """Plain torch version of the layout kernels: `recode` of the padded,
+    masked scalars, a stable sort of each window and the gather of the
+    signs."""
+    N = rows.shape[0]
     shape = (spec.n_windows, lanes, N // lanes)
-    mags, sgns = recode(sc, spec)
+    mags, sgns = recode(padded_limbs(sc, N, mask), spec)
     sdig, order = torch.sort(mags, dim=1, stable=True)
     ssgn = sgns.gather(1, order)
     return (sdig.view(shape), ssgn.view(shape),
             order.to(torch.int32).view(shape), table_words(rows, spec))
 
 
-def msm_rows_async(rows, sc, lanes: int, curve: str = "g1") -> torch.Tensor:
+def msm_rows_async(rows, sc, lanes: int, curve: str = "g1",
+                   mask=None) -> torch.Tensor:
     """rows (N, AF) affine Montgomery limbs or their (N, AW) words, sc
-    (N, 16) standard-form scalar limbs reduced mod r, N = T * lanes ->
-    (nwin, PR) window-sum limbs.
+    (n, 16) standard-form scalar limbs or their (n, 8) words, reduced mod
+    r, n <= N = T * lanes (rows from n on, and those `mask` sets, take
+    zero scalars) -> (nwin, PR) window-sum limbs.
 
     Dispatches the whole pipeline without a host wait on the card."""
     spec = SPECS[curve]
-    edig, ept = accumulate(*lane_layout(rows, sc, lanes, spec), spec)
+    edig, ept = accumulate(*lane_layout(rows, sc, lanes, spec, mask), spec)
     cdig, cpts = compact(edig, ept, spec.n_buckets + lanes + 2)
     return words_to_limbs(weighted_sum(cdig, cpts, spec))
 
