@@ -14,7 +14,9 @@ Phases, in order; any failure raises and exits nonzero:
      the reference e2e times it), then `commit_outcome` checks every proof
      against the pallet's own public inputs, outcome option 5; the last
      process and tally prove()'s stage traces, the prewarm and the kernel
-     load log printed; then the process key loaded again from the cache
+     load log printed; whether the e2e ran setup (a key-cache miss: then
+     each fixed-base kernel instance launched once a setup call),
+     `setup_process`; then the process key loaded again from the cache
      (a hit: setup is not run), its load time beside the setup's, and a
      proof from the loaded key verified;
   4. kernels at the first process proof's shapes: at each of its five
@@ -85,7 +87,9 @@ Phases, in order; any failure raises and exits nonzero:
      kernel held against its plain version at the first sampled process
      proof's shapes, and the same path checks;
   9. the zkey path at reference dims (ProcessMessages(10,2,1,2), domain
-     2^18): `generate_zkey` on the card, `write_zkey` to a file and
+     2^18): `generate_zkey` on the card (one launch of each fixed-base
+     instance, each call's encoding, device part and decode timed),
+     `write_zkey` to a file and
      `read_zkey` back, every field equal, the file's size and each step's
      seconds; `prove_zkey` of phase 3's first process witness twice from
      the read zkey (the first encodes the queries, the second is steady),
@@ -99,7 +103,11 @@ Phases, in order; any failure raises and exits nonzero:
      4 with the iNTT's tile gathering a, b and c = a.b (AB mode) and the
      pointwise step a.b - c, 6 launches, the pass launches there and at
      phase 4's process shape in turns, and `odd_coset_rows` against
-     `odd_coset_rows_plain`;
+     `odd_coset_rows_plain`; the fixed-base kernel (`csrc/fixed_base.cu`)
+     equal to its plain version bit for bit on the first and last 2^16
+     G1 scalars of `generate_zkey` and the first 2^16 G2 ones, 1,024
+     decoded points a curve equal to the host multiply, timed alone at
+     the full shape beside its bound and the plain version's full shape;
  10. the parallel witness: `PollProver.prove_poll_results` of the e2e's
      poll with forked witness workers (INFIMUM_PARALLEL_WITNESS=1) and on
      its default thread, each from a fresh prover with the e2e's seed, the
@@ -114,19 +122,28 @@ Phases, in order; any failure raises and exits nonzero:
      and strong, 2^18 over D), of those rows tiled to 2^20 with scalars
      from a seed, and of the `b2` query (141,312 G2 rows), by both
      reductions, each equal as an affine point to the one-card MSM of the
-     same rows; the 2^18 NTT forward equal to the one-card `ntt` in k-form
+     same rows; the cross-rank sum (`csrc/point_sum.cu`, one launch a
+     reduction or a round from D = 2 on) equal on every rank to its plain version on
+     every rank's window sums and to the gather's sum, a permute round
+     timed plain against the kernel, and the kernel alone at D = 2, 4, 8
+     beside its bound; the 2^18 NTT (slab in words, the twiddle product
+     through `fr_pointwise`, timed alone at rank 0's slab for D = 1, 2,
+     4) forward equal to the one-card `ntt` in k-form
      and its round trip exact; the poll's (2, 10) tree at D = 1, 2, 4 and
      (5, 6) tree at D = 1, 5 equal to phase 7's native roots; every rank's
-     launch counts gathered (all four MSM kernel instances on every rank
-     of an MSM run, the NTT's tile launch on every rank of an NTT run, the
-     Poseidon kernel on every rank of a tree run) and
+     launch counts gathered (every MSM kernel instance and both sum
+     instances on every rank of an MSM run, the NTT's tile and pointwise
+     launches on every rank of an NTT run, the Poseidon kernel on every
+     rank of a tree run) and
      no JAX on any rank; the bytes each reduction moved equal to
      `reduction_comm_bytes`; each world's backend, cards and per-rank
      CUDA-event ms, and one `msm_scaling` record line.
 `python3 chip_smoke.py --multi-gpu` runs phases 1-3, 7(a) and 11 only:
 the run on several cards, where phases 4-10 would repeat one card's.
 The last three lines of standard output are a JSON line with each kernel's
-launches (phase 11's summed over its ranks), error, times and bound, then the card's name and power limit;
+launches (the e2e's, the fixed-base kernels' with `generate_zkey`'s,
+phase 11's summed over its ranks), error, times and bound, then the
+card's name and power limit;
 the very last line is the result: {"ok": true, "device": {...}}.
 """
 
@@ -170,7 +187,7 @@ KERNEL_ROWS = (
     ("fr_ntt_pass", "infimum_tpu_torch/csrc/fr_ntt.cu",
      "infimum_tpu/ntt/ntt.py:121"),
     ("fr_pointwise", "infimum_tpu_torch/csrc/fr_ntt.cu",
-     "infimum_tpu/groth16/rowval.py:87"),
+     "infimum_tpu/groth16/rowval.py:87; infimum_tpu/parallel/ntt.py:124"),
     # counterparts of the glue inside the JAX package's compiled MSM program
     # `_msm_fn` (XLA ops, not Pallas kernels): the recode scan over the
     # windows (with the block histograms and their scan, the counting half
@@ -189,10 +206,22 @@ KERNEL_ROWS = (
      "infimum_tpu/msm/pallas_msm.py:463"),
     ("msm_compact_g2", "infimum_tpu_torch/csrc/msm_layout.cu",
      "infimum_tpu/msm/pallas_msm.py:463"),
+    # counterparts of the JAX package's last compiled programs (XLA, not
+    # Pallas): the fixed-base multiply of setup and zkey generation, and
+    # the sharded MSM's cross-rank sum inside shard_map
+    ("fixed_base_g1", "infimum_tpu_torch/csrc/fixed_base.cu",
+     "infimum_tpu/msm/fixed_base.py:59"),
+    ("fixed_base_g2", "infimum_tpu_torch/csrc/fixed_base.cu",
+     "infimum_tpu/msm/fixed_base.py:59"),
+    ("point_sum_g1", "infimum_tpu_torch/csrc/point_sum.cu",
+     "infimum_tpu/parallel/msm.py:31"),
+    ("point_sum_g2", "infimum_tpu_torch/csrc/point_sum.cu",
+     "infimum_tpu/parallel/msm.py:31"),
 )
 # every MSM kernel instance: a prove launches each of them
 MSM_KERNELS = tuple(name for name, *_ in KERNEL_ROWS
                     if name.startswith("msm_"))
+SUM_KERNELS = ("point_sum_g1", "point_sum_g2")
 # Bounds: the larger of bytes over the memory rate and 32-bit multiplies
 # over their rate. HBM3 of an H100 SXM: 3.35 TB/s (NVIDIA's data sheet).
 # 32-bit integer multiply and multiply-add: 64 per clock per SM on compute
@@ -1566,14 +1595,25 @@ def e2e_records(timings: dict) -> None:
         raise AssertionError("kernel_load_log wants one entry a source")
 
 
-def cache_hit(run, cache_before: set, seed: int = 99) -> None:
-    """Phase 3: `setup_cached` for the process circuit with the e2e's seed
-    must load the key the e2e cached (setup is not run), and a proof from
-    the loaded key must verify."""
+def cache_hit(run, cache_before: set, launches: dict, setups: int,
+              seed: int = 99) -> None:
+    """Phase 3: whether the e2e ran setup (`setups`, its calls: a
+    key-cache miss writes keys), and then that each fixed-base instance
+    launched once a setup in the e2e (`launches`); then `setup_cached` for
+    the process circuit with the e2e's seed must load the key the e2e
+    cached (setup is not run), and a proof from the loaded key must
+    verify."""
     from infimum_tpu_torch.groth16 import groth16 as g16, pkcache
 
     written = sorted(set(os.listdir(pkcache.default_cache_dir()))
                      - cache_before)
+    fixed = {k: launches[k] for k in FIXED_BASE_KERNELS}
+    if fixed != dict.fromkeys(FIXED_BASE_KERNELS, setups):
+        raise AssertionError(f"{setups} setup calls but the fixed-base "
+                             f"kernels launched {fixed}")
+    ran = f"ran {setups} times (a miss)" if setups else "did not run (a hit)"
+    log(f"[pkcache] setup {ran}: fixed-base launches {fixed}; setup_process "
+        f"{run.timings['setup_process']}s; card {card_line()}")
     real_setup = pkcache.setup
 
     def no_setup(*a, **k):
@@ -1660,8 +1700,137 @@ def scale_poll(mul_rate) -> None:
     kernel_vs_plain(pk, cs, witness, mul_rate, tag="scale ")
 
 
-def zkey_phase(run, mul_rate, pass_input) -> None:
-    """Phase 9: the process circuit's zkey generated on the card, written
+# -- the fixed-base multiply of setup and zkey generation (phases 3 and 9) ----
+
+FIXED_BASE_KERNELS = ("fixed_base_g1", "fixed_base_g2")
+FIXED_SLICE = 1 << 16       # scalars a slice held bit for bit against plain
+FIXED_HOST = 1024           # decoded points a curve against the host multiply
+
+
+class FixedBaseSplit:
+    """Within `with`, the program's `fixed_base_mul_batch` runs as it is,
+    with a clock around each of the three steps it calls in
+    `msm/fixed_base.py`: the scalars' encoding (`ints_to_words`, host
+    clock, synced), the device part (`mul_words`, CUDA events, synced
+    before and after; the window table built before the events, once per
+    curve and card) and the decode (`decode_words`, host). Each call's
+    record keeps its scalars and their words for the checks after it."""
+
+    def __init__(self):
+        self.calls = []
+
+    def _encode(self, scalars, device):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sc = self._real["ints_to_words"](scalars, device)
+        torch.cuda.synchronize()
+        self.calls.append({"n": len(scalars), "encode_s":
+                           time.perf_counter() - t0, "t0": t0,
+                           "scalars": scalars, "sc": sc})
+        return sc
+
+    def _mul(self, sc, curve, c):
+        from infimum_tpu_torch.ff.fp import device_key
+        from infimum_tpu_torch.msm import fixed_base as fb
+
+        fb.table_words(curve.name, device_key(sc.device))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self._real["mul_words"](sc, curve, c)
+        end.record()
+        torch.cuda.synchronize()
+        self.calls[-1].update(curve=curve.name,
+                              device_ms=start.elapsed_time(end))
+        return out
+
+    def _decode(self, out, curve):
+        t0 = time.perf_counter()
+        pts = self._real["decode_words"](out, curve)
+        t1 = time.perf_counter()
+        call = self.calls[-1]
+        call.update(decode_s=t1 - t0, whole_s=t1 - call["t0"])
+        return pts
+
+    def __enter__(self):
+        from infimum_tpu_torch.msm import fixed_base as fb
+
+        self._real = {k: getattr(fb, k) for k in
+                      ("ints_to_words", "mul_words", "decode_words")}
+        fb.ints_to_words, fb.mul_words, fb.decode_words = (
+            self._encode, self._mul, self._decode)
+        return self
+
+    def __exit__(self, *exc):
+        from infimum_tpu_torch.msm import fixed_base as fb
+
+        for k, f in self._real.items():
+            setattr(fb, k, f)
+
+    def lines(self) -> list[str]:
+        return [f"{c['curve'].upper()} {c['n']} scalars: encoding "
+                f"{c['encode_s']:.3f} s, device {c['device_ms']:.3f} ms, "
+                f"decode {c['decode_s']:.3f} s (call {c['whole_s']:.3f} s)"
+                for c in self.calls]
+
+
+def fixed_base_kernels(split: FixedBaseSplit, mul_rate) -> dict:
+    """Phase 9: each fixed-base call of `generate_zkey` held against the
+    plain version (`mul_words_plain`, the old path: `_mul_chunk` over
+    chunks of 2^17) bit for bit on the card, on the first and the last
+    FIXED_SLICE scalars of G1 (the last covers `h_s`) and the first of G2;
+    FIXED_HOST decoded points a curve, spread over the list, against the
+    host multiply; the kernel alone at the call's full shape beside its
+    bound (the mixed adds this run's digits need) and the plain version
+    at the full shape once. Returns the report's rows."""
+    from infimum_tpu_torch.curve.bn254_host import fixed_base_mul_host
+    from infimum_tpu_torch.curve.proj import CURVES
+    from infimum_tpu_torch.ff.fp import device_key
+    from infimum_tpu_torch.msm import fixed_base as fb
+
+    rows = {}
+    for call in split.calls:
+        name, sc, n = call["curve"], call["sc"], call["n"]
+        curve = CURVES[name]
+        slices = [slice(0, FIXED_SLICE)] + (
+            [slice(n - FIXED_SLICE, n)] if name == "g1" else [])
+        for sl in slices:
+            part = sc[sl].contiguous()
+            if not torch.equal(fb.mul_words(part, curve),
+                               fb.mul_words_plain(part, curve)):
+                raise AssertionError(f"fixed_base_{name}: kernel and plain "
+                                     f"differ on scalars {sl}")
+        pick = np.linspace(0, n - 1, FIXED_HOST).round().astype(int)
+        got = fb.decode_words(fb.mul_words(sc[torch.from_numpy(pick).to(
+            sc.device)].contiguous(), curve), curve)
+        want = fixed_base_mul_host([call["scalars"][i] for i in pick], name)
+        if got != want:
+            raise AssertionError(f"fixed_base_{name}: decoded points differ "
+                                 f"from the host multiply")
+        ms, enqueue, _ = alone_ms(lambda: fb.mul_words(sc, curve), 3)
+        adds = int((sc.view(torch.uint8) != 0).sum())      # a digit a byte
+        out_bytes = n * 3 * 4 * (8 if name == "g1" else 16)
+        table = fb.table_words(name, device_key(sc.device))
+        bnd = bound(nbytes(sc, table) + out_bytes, adds * MIXED_MULS[name],
+                    mul_rate)
+        torch.cuda.synchronize()
+        plain_ms, _ = cuda_ms(lambda: fb.mul_words_plain(sc, curve), 1)
+        rows[f"fixed_base_{name}"] = (0, ms, plain_ms, *bnd, None)
+        log(f"[zkey] fixed_base_{name}: {n} scalars, {adds} mixed adds "
+            f"(nonzero digits); bit-equal to plain on "
+            f"{', '.join(f'[{s.start}, {s.stop})' for s in slices)}; "
+            f"{FIXED_HOST} decoded points equal to fixed_base_mul_host; "
+            f"kernel alone {ms:.3f} ms (enqueue {enqueue:.3f} ms) against "
+            f"bound {bnd[0]:.3f} ms ({bnd[1]}, {bnd[0] / ms:.1%}); plain "
+            f"(the old path, _mul_chunk over chunks of {fb.CHUNK}) "
+            f"{plain_ms:.1f} ms at the full shape; card {card_line()}")
+    return rows
+
+
+def zkey_phase(run, mul_rate, pass_input):
+    """Phase 9: the process circuit's zkey generated on the card (each
+    fixed-base call split into encoding, device part and decode; one
+    launch of each fixed-base instance), written
     to a file and read back (every field equal), two `prove_zkey` calls of
     the e2e's first process witness from the read zkey (the first encodes
     its queries), each proof verified by the native pairing and through
@@ -1669,8 +1838,10 @@ def zkey_phase(run, mul_rate, pass_input) -> None:
     rejected, all four MSM kernel instances launched; three steady
     `prove()` and `prove_zkey` calls of that witness in turns, with their
     stage traces; then each MSM kernel held against its plain version at
-    the zkey's `h` shape, and the H kernels at its odd coset (`h_phase`,
-    the pass launches in turns with phase 4's `pass_input`)."""
+    the zkey's `h` shape, the H kernels at its odd coset (`h_phase`,
+    the pass launches in turns with phase 4's `pass_input`), and the
+    fixed-base kernels (`fixed_base_kernels`). Returns their report rows
+    and `generate_zkey`'s fixed-base launches."""
     import dataclasses
     import tempfile
 
@@ -1683,9 +1854,19 @@ def zkey_phase(run, mul_rate, pass_input) -> None:
     cs = run.keys.process_circuit.cs
     witness, publics = run.first_process["witness"], run.first_process[
         "publics"]
-    t0 = time.perf_counter()
-    zk = Z.generate_zkey(cs, random.Random(ZKEY_SEED), device="cuda")
-    gen_s = time.perf_counter() - t0
+    kernels.reset_counts()
+    with FixedBaseSplit() as split:
+        t0 = time.perf_counter()
+        zk = Z.generate_zkey(cs, random.Random(ZKEY_SEED), device="cuda")
+        gen_s = time.perf_counter() - t0
+    gen_launches = {k: kernels.KERNELS[k].launches for k in FIXED_BASE_KERNELS}
+    if gen_launches != dict.fromkeys(FIXED_BASE_KERNELS, 1) or \
+            [c["curve"] for c in split.calls] != ["g1", "g2"]:
+        raise AssertionError(f"generate_zkey launched {gen_launches} for "
+                             f"calls {[c['curve'] for c in split.calls]}")
+    log(f"[zkey] generate_zkey {gen_s:.3f}s: fixed-base launches "
+        f"{gen_launches}; " + "; ".join(split.lines())
+        + f"; card {card_line()}")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "process.zkey")
         t0 = time.perf_counter()
@@ -1771,6 +1952,7 @@ def zkey_phase(run, mul_rate, pass_input) -> None:
             mul_rate, lambda ww: Z.odd_coset_rows(back, ww, "cuda"),
             lambda w: Z.odd_coset_rows_plain(back, w, "cuda"), zkey=True,
             pass_other=pass_input)
+    return fixed_base_kernels(split, mul_rate), gen_launches
 
 
 def parallel_phase(run) -> None:
@@ -1874,8 +2056,8 @@ def multi_inputs(run, trees, tmp: str):
     rows that pad the query; the `b2` query with the witness), the NTT's
     input and one-card output, and the poll's trees. The expected points
     are the one-card `msm_rows_async` + `combine_window_points` of the
-    same rows."""
-    from infimum_tpu_torch.ff.fp import FR_CTX, limbs_to_words
+    same rows; `want["wins", set]` keeps their window sums as words."""
+    from infimum_tpu_torch.ff.fp import FR_CTX, limbs_to_words, words_to_limbs
     from infimum_tpu_torch.msm import msm as M
     from infimum_tpu_torch.ntt.ntt import ntt
 
@@ -1904,8 +2086,9 @@ def multi_inputs(run, trees, tmp: str):
         files[name] = (curve, save(f"{name}_rows", rows),
                        save(f"{name}_sc", sc), rows.shape[0])
         lanes = M.msm_lanes(rows.shape[0], curve)
+        want["wins", name] = M.msm_rows_words(rows, sc, lanes, curve)
         want[name] = M.combine_window_points(
-            M.msm_rows_async(rows, sc, lanes, curve).cpu(), curve)
+            words_to_limbs(want["wins", name]).cpu(), curve)
     a = _random_fr(rng, 1 << NTT_LOGN).cuda()      # Montgomery values < r
     files["ntt"] = (save("ntt_in", a), save("ntt_out", ntt(a, NTT_LOGN)))
     for arity, (depth, leaves, root) in trees.items():
@@ -1957,8 +2140,10 @@ def multi_rank(mesh, files, work) -> dict:
     through the port's sharded MSM (both reductions), NTT and trees on its
     card, with its launch counts from just before to just after."""
     from infimum_tpu_torch import kernels
-    from infimum_tpu_torch.ff.fp import FR_CTX
-    from infimum_tpu_torch.msm.msm import SPECS, combine_window_points
+    from infimum_tpu_torch.ff.fp import FR_CTX, limbs_to_words
+    from infimum_tpu_torch.msm.msm import (
+        combine_window_points, msm_lanes, msm_rows_words,
+    )
     from infimum_tpu_torch.parallel import distributed as D
     from infimum_tpu_torch.parallel import msm as PM
     from infimum_tpu_torch.parallel import ntt as PN
@@ -1967,7 +2152,10 @@ def multi_rank(mesh, files, work) -> dict:
     kernels.library()
     dev = mesh.device
     out = {"rank": mesh.rank, "device": str(dev),
-           "card": torch.cuda.get_device_name(dev), "msm": {}, "tree": {}}
+           "card": torch.cuda.get_device_name(dev), "msm": {}, "tree": {},
+           "sum": {}}
+    # (case, curve, rows' file, scalars' file, shard, the gather's sum)
+    sums = []
     kernels.reset_counts()
     if work["msm"]:
         for case, name, per_rank in MSM_CASES:
@@ -1985,13 +2173,10 @@ def multi_rank(mesh, files, work) -> dict:
                          else combine_window_points(wins.cpu(), curve))
                 out["msm"][case, mode] = (ms, wins is not None, point, sent,
                                           got)
-        # one complete add of a curve's window sums alone: a step of the
-        # reduction (plain torch, as many launches whatever the values)
-        for curve in ("g1", "g2"):
-            spec = SPECS[curve]
-            inf = spec.curve.infinity((spec.n_windows,), dev)
-            out["add_ms", curve] = cuda_ms(
-                lambda: spec.curve.add(inf, inf), MULTI_REPS, warm=1)[0]
+                if mode == "gather":
+                    summed = limbs_to_words(wins)
+            sums.append((case, curve, rows_f, sc_f, sl, summed))
+            del rows, sc
     if work["ntt"]:
         fwd, logn2, logn1 = PN.make_ntt_sharded(mesh, NTT_LOGN)
         inv = PN.make_intt_sharded(mesh, NTT_LOGN)
@@ -2015,8 +2200,102 @@ def multi_rank(mesh, files, work) -> dict:
         out["tree"][arity] = (ms, FR_CTX.decode(root)[0])
     torch.cuda.synchronize(dev)
     out["launches"] = kernels.launch_counts()
+    # after the counts: every rank's window sums gathered again (each rank
+    # runs this, so the collective stays matched), the sum kernel against
+    # its plain version on them, and one permute round (mine plus a
+    # partner's window sums) timed both ways: the plain version is the old
+    # round (limbs, one complete add in torch, words)
+    gathered = []
+    for case, curve, rows_f, sc_f, sl, summed in sums:
+        rows, sc = _load_words(rows_f, sl, dev), _load_words(sc_f, sl, dev)
+        lanes = msm_lanes(rows.shape[0], curve)
+        every = D.all_gather(msm_rows_words(*PM._pad(rows, sc, lanes), lanes,
+                                            curve), mesh)
+        gathered.append((curve, every))
+        kern = PM.point_sum(every, curve)
+        out["sum"][case] = (bool(torch.equal(kern, PM.point_sum_plain(
+            every, curve))), bool(torch.equal(kern, summed)))
+    for curve in ("g1", "g2") if sums else ():
+        every = next(e for c, e in gathered if c == curve)
+        pair = torch.stack([every[0], every[-1]])
+        out["add_ms", curve] = tuple(
+            cuda_ms(lambda: f(pair, curve), MULTI_REPS, warm=1)[0]
+            for f in (PM.point_sum_plain, PM.point_sum))
     out["foreign"] = foreign_modules()
     return out
+
+
+SUM_DS = (2, 4, 8)
+
+
+def sum_kernels(want, mul_rate) -> dict:
+    """Phase 11 on one card: the sum kernel alone on D = 2, 4 and 8 points
+    a window (the one-card MSM's window sums of `h` for G1 and `b2` for
+    G2, entry i rolled by i windows), each equal to its plain version bit
+    for bit, beside its bound (T - 1 complete adds a window) and the plain
+    version's time. Returns the report's rows at D = 2 (a permute
+    round)."""
+    from infimum_tpu_torch.msm.msm import SPECS
+    from infimum_tpu_torch.parallel import msm as PM
+
+    rows, lines = {}, []
+    for curve, name in (("g1", "h"), ("g2", "b2")):
+        spec = SPECS[curve]
+        wins = want["wins", name]
+        for d in SUM_DS:
+            every = torch.stack([wins.roll(i, 0) for i in range(d)])
+            got = PM.point_sum(every, curve)
+            if not torch.equal(got, PM.point_sum_plain(every, curve)):
+                raise AssertionError(f"point_sum_{curve} at D = {d} differs "
+                                     f"from plain")
+            ms, _, _ = alone_ms(lambda: PM.point_sum(every, curve), 20)
+            plain_ms, _ = cuda_ms(lambda: PM.point_sum_plain(every, curve),
+                                  MULTI_REPS, warm=1)
+            adds = ((1 << (d - 1).bit_length()) - 1) * spec.n_windows
+            bnd = bound(nbytes(every, got), adds * ADD_MULS[curve], mul_rate)
+            if d == 2:
+                rows[f"point_sum_{curve}"] = (0, ms, plain_ms, *bnd, None)
+            lines.append(f"{curve.upper()} D = {d}: kernel {ms:.4f} ms, "
+                         f"bound {bnd[0]:.6f} ms ({bnd[1]}, {adds} adds), "
+                         f"plain {plain_ms:.3f} ms")
+    log(f"[multi] the sum kernel alone, bit-equal to plain: "
+        + "; ".join(lines) + f"; card {card_line()}")
+    return rows
+
+
+def twiddle_kernel(mul_rate) -> None:
+    """Phase 11 on one card: the sharded NTT's twiddle product, one
+    pointwise launch over rank 0's slab of the 2^18 transform at D = 1, 2
+    and 4 ((N1/D, N2) words, values from a seed, times the cached twiddle
+    words), equal to its plain version bit for bit, alone beside its bound
+    (both operands read and the product written once; a product a value)
+    and the plain version's time."""
+    from infimum_tpu_torch.ff.fp import limbs_to_words
+    from infimum_tpu_torch.ntt.ntt import pointwise, pointwise_plain
+    from infimum_tpu_torch.parallel import distributed as D
+    from infimum_tpu_torch.parallel import ntt as PN
+
+    rng = np.random.default_rng(MULTI_SEED + 1)
+    lines = []
+    for d in (1, 2, 4):
+        mesh = D.ProvingMesh(0, d, torch.device("cuda", 0))
+        logn2, logn1 = PN._split(NTT_LOGN, d)
+        tw = PN._twiddles(mesh, logn2, logn1, False)
+        x = limbs_to_words(_random_fr(rng, tw.numel() // 8).cuda()).reshape(
+            tw.shape)
+        got = pointwise(x, tw)
+        if not torch.equal(got, pointwise_plain(x, tw)):
+            raise AssertionError(f"the twiddle product at D = {d} differs "
+                                 f"from plain")
+        ms, _, _ = alone_ms(lambda: pointwise(x, tw), 20)
+        plain_ms, _ = cuda_ms(lambda: pointwise_plain(x, tw), MULTI_REPS,
+                              warm=1)
+        bnd = bound(nbytes(x, tw, got), x.numel() // 8, mul_rate)
+        lines.append(f"D = {d}: {tuple(x.shape[:2])} values, kernel "
+                     f"{ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}, "
+                     f"{bnd[0] / ms:.1%}), plain {plain_ms:.3f} ms")
+    log(f"[multi] the twiddle product (fr_pointwise) alone, bit-equal to "
+        f"plain: " + "; ".join(lines) + f"; card {card_line()}")
 
 
 def multi_worlds(cards: int):
@@ -2031,13 +2310,17 @@ def multi_worlds(cards: int):
     return worlds
 
 
-def multi_gpu_phase(run, trees) -> dict:
+def multi_gpu_phase(run, trees, mul_rate):
     """Phase 11: the port's `parallel/` over torch.distributed, one spawned
     process a rank. Every result equal to its one-card result, every rank
-    of an MSM run launching all four MSM kernel instances and of a tree run
-    the Poseidon kernel, no JAX on any rank; prints each world's backend,
-    cards and per-rank CUDA-event ms, and the `msm_scaling` record. Returns
-    the ranks' launch counts, summed."""
+    of an MSM run launching all MSM kernel instances and the sum kernel
+    for each curve (equal to its plain version there), of an NTT run the
+    tile and pointwise kernels, and of a tree run the Poseidon kernel, no
+    JAX on any rank; the sum kernel alone at D = 2, 4, 8 (`sum_kernels`)
+    and the twiddle product alone at D = 1, 2, 4 (`twiddle_kernel`);
+    prints each world's backend, cards and per-rank CUDA-event ms, and the
+    `msm_scaling` record. Returns the ranks' launch counts, summed, and
+    the sum kernel's report rows."""
     import tempfile
 
     from infimum_tpu_torch.curve.proj import CURVES
@@ -2056,6 +2339,8 @@ def multi_gpu_phase(run, trees) -> dict:
            "backend": {}, "cards": {}}
     with tempfile.TemporaryDirectory() as tmp:
         files, want = multi_inputs(run, trees, tmp)
+        sum_rows = sum_kernels(want, mul_rate)
+        twiddle_kernel(mul_rate)
         for d, backend, work in multi_worlds(cards):
             w0 = time.perf_counter()
             ranks = D.spawn(multi_rank, d, backend, "cuda", (files, work),
@@ -2069,13 +2354,22 @@ def multi_gpu_phase(run, trees) -> dict:
                                          f"{r['foreign'][:5]}")
                 for k, n in r["launches"].items():
                     summed[k] = summed.get(k, 0) + n
-                need = (list(MSM_KERNELS) if work["msm"] else []) + (
+                # gather reduces on every rank, so every rank sums (a
+                # launch from D = 2 on: at D = 1 the one entry is the sum)
+                sum_need = list(SUM_KERNELS) if d >= 2 else []
+                need = (list(MSM_KERNELS) + sum_need
+                        if work["msm"] else []) + (
                     ["poseidon_perm"] if work["tree"] else []) + (
-                    ["fr_ntt_tile"] if work["ntt"] else [])
+                    ["fr_ntt_tile", "fr_pointwise"] if work["ntt"] else [])
                 idle = [k for k in need if r["launches"][k] == 0]
                 if idle:
                     raise AssertionError(f"rank {r['rank']} of {d} never "
                                          f"launched {idle}")
+                bad = {c: x for c, x in r["sum"].items() if x != (True, True)}
+                if bad:
+                    raise AssertionError(f"rank {r['rank']} of {d}: the sum "
+                                         f"kernel against plain and the "
+                                         f"gather's sum: {bad}")
             lines = []
             for case, name, per_rank in MSM_CASES if work["msm"] else ():
                 curve = files[name][0]
@@ -2114,11 +2408,17 @@ def multi_gpu_phase(run, trees) -> dict:
                     for m in (("gather", "permute") if d & (d - 1) == 0
                               else ("gather",))}
             if work["msm"]:
-                adds = {c: max(r["add_ms", c] for r in ranks)
+                adds = {c: {"plain": max(r["add_ms", c][0] for r in ranks),
+                            "kernel": max(r["add_ms", c][1] for r in ranks)}
                         for c in ("g1", "g2")}
                 rec["reduction_add_ms"][key] = adds
-                lines.append(f"one complete add of the window sums alone "
-                             f"G1 {adds['g1']:.3f} / G2 {adds['g2']:.3f} ms")
+                lines.append(
+                    "the sum kernel equal to plain on every rank's window "
+                    "sums and to the gather's sum; one permute round of "
+                    "the window sums, plain (the old torch add) against "
+                    "the kernel: " + ", ".join(
+                        f"{c.upper()} {a['plain']:.3f} / {a['kernel']:.4f} ms"
+                        for c, a in adds.items()))
             if work["ntt"]:
                 res = [r["ntt"] for r in ranks]
                 if not all(x[2] and x[3] for x in res):
@@ -2156,7 +2456,7 @@ def multi_gpu_phase(run, trees) -> dict:
     log(f"[multi] launches over every rank {json.dumps(summed)}; phase 11 "
         f"{time.perf_counter() - t0:.1f}s")
     log(f"[multi] record {json.dumps({'msm_scaling': rec})}")
-    return summed
+    return summed, sum_rows
 
 
 PR_SET_CHILD_SUBREAPER = 36
@@ -2291,16 +2591,30 @@ def main(argv: list[str]) -> int:
     if not native.available():
         raise SystemExit("native library did not load: verification would "
                          "not be the native pairing")
+    from infimum_tpu_torch.groth16 import pkcache
     from infimum_tpu_torch.groth16.pkcache import default_cache_dir
 
     os.makedirs(default_cache_dir(), exist_ok=True)
     cache_before = set(os.listdir(default_cache_dir()))
+    # setup's calls in the e2e: a miss runs it, and each of its calls
+    # launches each fixed-base instance once
+    setups = []
+    real_setup = pkcache.setup
+
+    def counted_setup(*a, **k):
+        setups.append(1)
+        return real_setup(*a, **k)
+
+    pkcache.setup = counted_setup
     kernels.reset_counts()
-    t0 = time.perf_counter()
-    run = run_reference_e2e(verbose=True, device="cuda")
-    torch.cuda.synchronize()
-    e2e_s = time.perf_counter() - t0
-    launches = kernels.launch_counts()
+    try:
+        t0 = time.perf_counter()
+        run = run_reference_e2e(verbose=True, device="cuda")
+        torch.cuda.synchronize()
+        e2e_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        pkcache.setup = real_setup
     log(f"[e2e] {e2e_s:.1f}s timings {json.dumps(run.timings)}")
     witness_native = run.keys.process_circuit.cs._native_prog() is not None
     log(f"[e2e] verifier: native pairing ({native._LIB_PATH}); witness: "
@@ -2309,7 +2623,7 @@ def main(argv: list[str]) -> int:
     if multi_only:
         # the phase's inputs: the e2e's key and witness, the poll's trees
         _, _, trees = poll_trees(native)
-        multi_gpu_phase(run, trees)
+        multi_gpu_phase(run, trees, mul_rate)
         print(card_line())
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2317,7 +2631,7 @@ def main(argv: list[str]) -> int:
         return 0
     batch_times(run.timings)
     e2e_records(run.timings)
-    cache_hit(run, cache_before)
+    cache_hit(run, cache_before, launches, len(setups))
 
     # 4. kernel vs plain on the first process proof's inputs
     first = run.first_process
@@ -2374,11 +2688,16 @@ def main(argv: list[str]) -> int:
                              f"{foreign_modules()[:5]}")
 
     # 9. the zkey path; 10. the parallel witness
-    zkey_phase(run, mul_rate, pass_input)
+    fixed_rows, gen_launches = zkey_phase(run, mul_rate, pass_input)
+    cmp.update(fixed_rows)
+    for name, n in gen_launches.items():      # key generation's path
+        launches[name] += n
     parallel_phase(run)
 
     # 11. the multi-GPU slice; its ranks' launches join the report's
-    for name, n in multi_gpu_phase(run, trees).items():
+    summed, sum_rows = multi_gpu_phase(run, trees, mul_rate)
+    cmp.update(sum_rows)
+    for name, n in summed.items():
         launches[name] = launches.get(name, 0) + n
     if foreign_modules():
         raise AssertionError(f"JAX or infimum_tpu imported: "

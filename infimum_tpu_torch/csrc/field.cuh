@@ -1,6 +1,8 @@
 // BN254 prime-field (Fq, Fr) and Fq2 arithmetic and the RCB complete
 // addition formulas, as __device__ code for the MSM kernels (msm_accum.cu,
-// msm_weighted.cu) and the Poseidon kernel (poseidon_perm.cu).
+// msm_weighted.cu, msm_layout.cu), the fixed-base multiply
+// (fixed_base.cu), the cross-rank sum (point_sum.cu) and the Fr kernels
+// (poseidon_perm.cu, fr_ntt.cu, fr_rows.cu).
 //
 // Replaces the in-kernel helpers of infimum_tpu/msm/pallas_field.py (Fq,
 // Fq2, rcb_add, rcb_add_mixed) and infimum_tpu/ff/pallas_fp.py (Fr). A
@@ -341,6 +343,24 @@ template <class F>
 struct Proj {
   typename F::E x, y, z;
 };
+
+template <class F>
+struct Affine {
+  typename F::E x, y;
+};
+
+// row `row` of a table of affine points, x then y, W words each, read as
+// 16-byte vectors through the read-only cache
+template <class F>
+__device__ __forceinline__ Affine<F> load_row(const uint4* __restrict__ table,
+                                              int32_t row) {
+  constexpr int W = F::WORDS, V = 2 * W / 4;
+  uint4 v[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) v[k] = __ldg(table + (size_t)row * V + k);
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(v);
+  return {F::load(w, 1), F::load(w + W, 1)};
+}
 
 template <class F>
 __device__ __forceinline__ Proj<F> proj_infinity() {

@@ -57,23 +57,6 @@ namespace inf {
 constexpr int ACCUM_BLOCK = 32;  // threads (lanes) a block: one warp
 
 template <class F>
-struct Affine {
-  typename F::E x, y;
-};
-
-// table row `row`: x then y, W words each, read as 16-byte vectors
-template <class F>
-__device__ __forceinline__ Affine<F> load_row(const uint4* __restrict__ table,
-                                              int32_t row) {
-  constexpr int W = F::WORDS, V = 2 * W / 4;
-  uint4 v[V];
-#pragma unroll
-  for (int k = 0; k < V; ++k) v[k] = __ldg(table + (size_t)row * V + k);
-  const uint32_t* w = reinterpret_cast<const uint32_t*>(v);
-  return {F::load(w, 1), F::load(w + W, 1)};
-}
-
-template <class F>
 __global__ void __launch_bounds__(ACCUM_BLOCK)
 msm_accum_kernel(const int32_t* __restrict__ sdig,
                  const int32_t* __restrict__ ssgn,

@@ -16,7 +16,9 @@ card the calling thread had current.
 kernel for one curve, the MSM layout's recode (its scan in the same
 launch) and scatter and its compaction, the Poseidon permutation for
 every width, its measured variants apart; the H pipeline's row
-evaluation, NTT tile and pass launches and pointwise step), so a run can
+evaluation, NTT tile and pass launches and pointwise step; the fixed-base
+multiply of setup for each curve; the sharded MSM's cross-rank sum for
+each curve), so a run can
 show that its main path went through the kernel. Nothing here is
 imported or built unless a CUDA tensor reaches a kernel wrapper.
 """
@@ -38,7 +40,8 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
 SOURCES = ("msm_accum.cu", "msm_weighted.cu", "msm_layout.cu",
-           "poseidon_perm.cu", "fr_ntt.cu", "fr_rows.cu")
+           "poseidon_perm.cu", "fr_ntt.cu", "fr_rows.cu", "fixed_base.cu",
+           "point_sum.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "--resource-usage")
 
@@ -88,6 +91,10 @@ KERNELS = {
     "fr_ntt_tile": Kernel("inf_fr_ntt_tile", 6, 4),
     "fr_ntt_pass": Kernel("inf_fr_ntt_pass", 4, 4),
     "fr_pointwise": Kernel("inf_fr_pointwise", 5, 1),
+    "fixed_base_g1": Kernel("inf_fixed_base_g1", 3, 1),
+    "fixed_base_g2": Kernel("inf_fixed_base_g2", 3, 1),
+    "point_sum_g1": Kernel("inf_point_sum_g1", 3, 2),
+    "point_sum_g2": Kernel("inf_point_sum_g2", 3, 2),
 }
 
 # the last build of this process: {"seconds", "path", "log", "sources"}

@@ -538,18 +538,24 @@ def lane_layout_plain(rows, sc, lanes: int, spec: CurveSpec, mask=None):
             order.to(torch.int32).view(shape), table_words(rows, spec))
 
 
-def msm_rows_async(rows, sc, lanes: int, curve: str = "g1",
+def msm_rows_words(rows, sc, lanes: int, curve: str = "g1",
                    mask=None) -> torch.Tensor:
     """rows (N, AF) affine Montgomery limbs or their (N, AW) words, sc
     (n, 16) standard-form scalar limbs or their (n, 8) words, reduced mod
     r, n <= N = T * lanes (rows from n on, and those `mask` sets, take
-    zero scalars) -> (nwin, PR) window-sum limbs.
+    zero scalars) -> (nwin, PW) window-sum words.
 
     Dispatches the whole pipeline without a host wait on the card."""
     spec = SPECS[curve]
     edig, ept = accumulate(*lane_layout(rows, sc, lanes, spec, mask), spec)
     cdig, cpts = compact(edig, ept, spec.n_buckets + lanes + 2)
-    return words_to_limbs(weighted_sum(cdig, cpts, spec))
+    return weighted_sum(cdig, cpts, spec)
+
+
+def msm_rows_async(rows, sc, lanes: int, curve: str = "g1",
+                   mask=None) -> torch.Tensor:
+    """`msm_rows_words` as (nwin, PR) window-sum limbs."""
+    return words_to_limbs(msm_rows_words(rows, sc, lanes, curve, mask))
 
 
 def decode_windows(wins, curve: str = "g1"):

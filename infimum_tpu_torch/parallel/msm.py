@@ -2,11 +2,13 @@
 
 Counterpart of `infimum_tpu/parallel/msm.py`. Rows (points) and scalars
 are sharded over the ranks; each rank runs the port's own pipeline on its
-shard (`msm/msm.py` `msm_rows_async`: `lane_layout`, the accumulation
+shard (`msm/msm.py` `msm_rows_words`: `lane_layout`, the accumulation
 kernel, `compact`, the weighted kernel), its rows padded with zero rows
-and zero scalars to its own lane count. The (nwin, PR) window sums, 20
-windows for G1 (c = 13) and 26 for G2 (c = 10), then cross the group as
-32-bit words and are reduced with the port's complete add (`curve/proj.py`):
+and zero scalars to its own lane count. The (nwin, PW) window sums, 20
+windows for G1 (c = 13) and 26 for G2 (c = 10), stay 32-bit words through
+the collectives and are summed by `point_sum` (`csrc/point_sum.cu`, one
+launch a reduction or a round; `_tree_reduce_axis0` on limbs is its plain
+version):
 
   - "gather": an all_gather of every rank's window sums, then a halving
     tree over them, padded to a power of two with the identity; every
@@ -27,10 +29,11 @@ import math
 
 import torch
 
+from .. import kernels
 from ..curve.proj import CurveDev
 from ..ff.fp import NLIMBS, limbs_to_words, words_to_limbs
 from ..msm.msm import (
-    SPECS, combine_window_points, encode_inputs, msm_lanes, msm_rows_async,
+    SPECS, combine_window_points, encode_inputs, msm_lanes, msm_rows_words,
 )
 from . import distributed as D
 
@@ -51,6 +54,43 @@ def _tree_reduce_axis0(curve: CurveDev, pts):
         pts = curve.add(tuple(c[:target] for c in pts),
                         tuple(c[target:] for c in pts))
     return tuple(c[0] for c in pts)
+
+
+def point_sum_plain(words: torch.Tensor, curve: str = "g1") -> torch.Tensor:
+    """The plain version of `point_sum` on any device: the words as limbs
+    through `_tree_reduce_axis0`."""
+    spec = SPECS[curve]
+    limbs = words_to_limbs(words).unflatten(-1, (3, *spec.curve.fshape()))
+    pts = tuple(limbs.select(2, i) for i in range(3))
+    total = _tree_reduce_axis0(spec.curve, pts)
+    return limbs_to_words(torch.stack(total, 1).reshape(words.shape[1],
+                                                        spec.PR))
+
+
+def point_sum(words: torch.Tensor, curve: str = "g1") -> torch.Tensor:
+    """(D, nwin, PW) int32 projective words -> (nwin, PW) words, each
+    window's D points summed in `_tree_reduce_axis0`'s order: one launch
+    of the sum kernel on a card for D >= 2 (D = 1's entry is the sum),
+    its plain version on the CPU."""
+    if words.device.type == "cpu":
+        return point_sum_plain(words, curve)
+    if words.device.type != "cuda":
+        raise ValueError(f"no point_sum kernel for {words.device}")
+    spec = SPECS[curve]
+    if words.dtype != torch.int32 or words.dim() != 3 or \
+            words.shape[2] != spec.PW or not words.is_contiguous() or \
+            words.shape[0] < 1:
+        raise ValueError(f"words: want contiguous (D, nwin, {spec.PW}) "
+                         f"int32, got {words.dtype} {tuple(words.shape)}")
+    d, nwin = words.shape[:2]
+    if d == 1:
+        return words[0].clone()
+    # the levels after the first: T / 2 points a window, T >= d a power of 2
+    scratch = words.new_empty((1 << (d - 1).bit_length() - 1, nwin, spec.PW)
+                              ) if d > 2 else None
+    out = words.new_empty((nwin, spec.PW))
+    kernels.KERNELS[f"point_sum_{curve}"](words, scratch, out, d, nwin)
+    return out
 
 
 def _mode(ndev: int, reduce: str) -> str:
@@ -102,31 +142,18 @@ def make_sharded_window_sums(mesh: D.ProvingMesh, curve: str = "g1",
     rank holds it; permute: rank 0). rows (n, AF) affine Montgomery limbs
     and sc (n, 16) standard-form scalar limbs are this rank's shard on its
     device, run on `msm_lanes` of the shard's size."""
-    spec = SPECS[curve]
-    cdev = spec.curve
     mode = _mode(mesh.world, reduce)
-
-    def as_point(limbs):            # (..., PR) -> (X, Y, Z)
-        w = limbs.unflatten(-1, (3, *cdev.fshape()))
-        return tuple(w.select(limbs.dim() - 1, i) for i in range(3))
-
-    def as_limbs(pt):               # (X, Y, Z) of (nwin, field) -> (nwin, PR)
-        return torch.stack(pt, 1).reshape(pt[0].shape[0], spec.PR)
 
     def fn(rows, sc):
         lanes = msm_lanes(rows.shape[0], curve)
-        wins = msm_rows_async(*_pad(rows, sc, lanes), lanes, curve)
+        words = msm_rows_words(*_pad(rows, sc, lanes), lanes, curve)
         if mode == "gather":
-            every = words_to_limbs(D.all_gather(limbs_to_words(wins), mesh))
-            return as_limbs(_tree_reduce_axis0(cdev, as_point(every)))
-        words = limbs_to_words(wins)
+            return words_to_limbs(point_sum(D.all_gather(words, mesh), curve))
         stride = mesh.world >> 1
         while stride >= 1:
             if mesh.rank < stride:
                 part = D.recv(words, mesh.rank + stride, mesh)
-                words = limbs_to_words(as_limbs(cdev.add(
-                    as_point(words_to_limbs(words)),
-                    as_point(words_to_limbs(part)))))
+                words = point_sum(torch.stack([words, part]), curve)
             elif mesh.rank < 2 * stride:
                 D.send(words, mesh.rank - stride, mesh)
             stride >>= 1

@@ -12,12 +12,14 @@ limb. N = N2 * N1, D ranks:
 `make_ntt_sharded` maps natural to k-form: a local NTT of length N2 over
 axis 0, the twiddle w^(j1 k2), one all_to_all (split axis 0, concat axis
 1) and a local NTT of length N1 over axis 1. `make_intt_sharded` is its
-exact inverse. The local transforms are `ntt/ntt.py` `ntt` (plain torch,
-over the second-last dim of a batch), as the reference's are XLA. Each
-rank builds only its own (N2, N1/D) twiddle slab, on its device. The
-all_to_all moves 32-bit words, not the 64-bit limb tensors.
+exact inverse. Between the functions' edges the slab stays in 32-bit
+Montgomery words: the local transforms are `ntt/ntt.py` `ntt_words` (the
+tile and pass kernels on a card), the twiddle product is `pointwise` (the
+pointwise kernel), and the all_to_all moves the words. Each rank builds
+only its own twiddle slab, on its device, once, and keeps it as words.
 
-Values are (..., 16) int64 Montgomery limbs (`ff/fp.py`).
+Values at the functions' edges are (..., 16) int64 Montgomery limbs
+(`ff/fp.py`).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch
 
 from ..ff.bn254 import fr_inv
 from ..ff.fp import FR_CTX, NLIMBS, device_key, limbs_to_words, words_to_limbs
-from ..ntt.ntt import _root_of_unity, ntt
+from ..ntt.ntt import _root_of_unity, fr_const, ntt_words, pointwise
 from . import distributed as D
 
 
@@ -57,7 +59,6 @@ def _geometric(x: torch.Tensor, m: int) -> torch.Tensor:
     return out
 
 
-@functools.lru_cache(maxsize=None)
 def _twiddle_slab(logn2: int, logn1: int, invert: bool, j0: int, width: int,
                   device: str) -> torch.Tensor:
     """w^(j1 k2) (w^-1 with `invert`) for every k2 and the columns j1 in
@@ -70,14 +71,27 @@ def _twiddle_slab(logn2: int, logn1: int, invert: bool, j0: int, width: int,
     return FR_CTX.mont_mul(_geometric(rows, width), first.unsqueeze(1))
 
 
+@functools.lru_cache(maxsize=None)
+def _twiddle_words(logn2: int, logn1: int, invert: bool, j0: int, width: int,
+                   device: str) -> torch.Tensor:
+    """`_twiddle_slab` as Montgomery words, column-major as the axis-0
+    transform leaves its output: (width, N2, 8), entry [j1, k2]."""
+    slab = _twiddle_slab(logn2, logn1, invert, j0, width, device)
+    return limbs_to_words(slab.transpose(0, 1)).contiguous()
+
+
 def _twiddles(mesh: D.ProvingMesh, logn2: int, logn1: int, invert: bool):
     cols = D.host_shard(1 << logn1, mesh)
-    return _twiddle_slab(logn2, logn1, invert, cols.start,
-                         cols.stop - cols.start, device_key(mesh.device))
+    return _twiddle_words(logn2, logn1, invert, cols.start,
+                          cols.stop - cols.start, device_key(mesh.device))
 
 
-def _ntt_axis0(a: torch.Tensor, logn: int, invert: bool) -> torch.Tensor:
-    return ntt(a.transpose(0, 1), logn, invert).transpose(0, 1)
+def _ntt(x: torch.Tensor, logn: int, invert: bool) -> torch.Tensor:
+    """The transform over dim -2 of (..., 2^logn, 8) words, the inverse's
+    1/n folded in, as `ntt/ntt.py` `ntt` does on limbs."""
+    post_c = fr_const(fr_inv(1 << logn), device_key(x.device)) \
+        if invert else None
+    return ntt_words(x, logn, invert, post_c=post_c)
 
 
 def make_ntt_sharded(mesh: D.ProvingMesh, logn: int, invert: bool = False):
@@ -88,12 +102,14 @@ def make_ntt_sharded(mesh: D.ProvingMesh, logn: int, invert: bool = False):
 
     def fn(a_l):
         n2, n1l = a_l.shape[:2]
-        c = FR_CTX.mont_mul(_ntt_axis0(a_l, logn2, invert), tw)
+        # axis 0 as the transform's axis: (N1/D, N2, 8), then the twiddle
+        b = limbs_to_words(a_l.transpose(0, 1)).contiguous()
+        c = pointwise(_ntt(b, logn2, invert), tw)
         # block i of the result is rank i's columns of my rows
-        got = D.all_to_all(limbs_to_words(c), mesh)
+        got = D.all_to_all(c.transpose(0, 1).contiguous(), mesh)
         x = got.reshape(mesh.world, n2 // mesh.world, n1l, NLIMBS // 2) \
                .transpose(0, 1).reshape(n2 // mesh.world, -1, NLIMBS // 2)
-        return ntt(words_to_limbs(x), logn1, invert)
+        return words_to_limbs(_ntt(x, logn1, invert))
 
     return fn, logn2, logn1
 
@@ -107,12 +123,13 @@ def make_intt_sharded(mesh: D.ProvingMesh, logn: int):
 
     def fn(d_l):
         n2l, n1 = d_l.shape[:2]
-        x = limbs_to_words(ntt(d_l, logn1, True))
+        x = _ntt(limbs_to_words(d_l), logn1, True)
         # block i goes to rank i: its columns of my rows, made contiguous
         blocks = x.reshape(n2l, mesh.world, n1 // mesh.world, NLIMBS // 2) \
                   .transpose(0, 1).reshape(-1, n1 // mesh.world, NLIMBS // 2)
-        c = words_to_limbs(D.all_to_all(blocks, mesh))   # (N2, N1/D, 16)
-        return _ntt_axis0(FR_CTX.mont_mul(c, tw_inv), logn2, True)
+        c = D.all_to_all(blocks, mesh)                  # (N2, N1/D, 8)
+        b = pointwise(c.transpose(0, 1).contiguous(), tw_inv)
+        return words_to_limbs(_ntt(b, logn2, True).transpose(0, 1))
 
     return fn
 
