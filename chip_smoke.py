@@ -104,10 +104,12 @@ Phases, in order; any failure raises and exits nonzero:
      pointwise step a.b - c, 6 launches, the pass launches there and at
      phase 4's process shape in turns, and `odd_coset_rows` against
      `odd_coset_rows_plain`; the fixed-base kernel (`csrc/fixed_base.cu`)
-     equal to its plain version bit for bit on the first and last 2^16
-     G1 scalars of `generate_zkey` and the first 2^16 G2 ones, 1,024
-     decoded points a curve equal to the host multiply, timed alone at
-     the full shape beside its bound and the plain version's full shape;
+     equal to its plain version bit for bit (affine standard-form words)
+     over every scalar of `generate_zkey`'s two calls, 1,024 decoded
+     points a curve equal to the host multiply, timed alone at the full
+     shape beside its bound with and without the affine epilogue, its
+     registers, resident blocks and waves, and the plain version's time
+     at the full shape;
  10. the parallel witness: `PollProver.prove_poll_results` of the e2e's
      poll with forked witness workers (INFIMUM_PARALLEL_WITNESS=1) and on
      its default thread, each from a fresh prover with the e2e's seed, the
@@ -239,6 +241,7 @@ MULS_PER_MONT = 264
 # additions.
 ADD_MULS = {"g1": 12, "g2": 12 * 3 + 2 * 3}
 MIXED_MULS = {"g1": 11, "g2": 11 * 3 + 2 * 3}
+ACCUM_FIELD = {"g1": "11FqOutOfLine", "g2": "12Fq2OutOfLine"}
 SIGNUPS, MESSAGES = 1022, 15624   # client/scale.py: the largest legal poll
 POLL_SEED, BENCH_SEED = 20260820, 20260819
 ZKEY_SEED = 20260821
@@ -323,14 +326,14 @@ RESOURCES = re.compile(
     r"registers)?")
 
 
-def accum_resources(curve: str) -> str:
-    """The accumulation kernel's registers and spills for `curve` from
-    nvcc's --resource-usage report of this run's build."""
+def kernel_resources(kernel: str, field: str) -> str:
+    """A kernel instance's registers, stack and spills from nvcc's
+    --resource-usage report of this run's build: the function whose
+    mangled name holds `kernel` and `field` (its field type's)."""
     from infimum_tpu_torch import kernels
 
-    tag = "12Fq2OutOfLine" if curve == "g2" else "11FqOutOfLine"
     for m in RESOURCES.finditer(kernels.BUILD_INFO.get("log", "")):
-        if "msm_accum_kernel" in m.group(1) and tag in m.group(1):
+        if kernel in m.group(1) and field in m.group(1):
             return (f"{m.group(5)} registers, {m.group(2)} B stack, "
                     f"{m.group(3)} B spill stores, {m.group(4)} B spill loads")
     return "registers not in this run's build log"
@@ -397,7 +400,8 @@ def msm_kernels(name, curve, rows, sc, mask, lanes, mul_rate, tag="",
         f"{N // lanes}): kernel {acc_ms:.3f} ms;"
         f" {mixed} mixed adds, bound {acc_bound[0]:.3f} ms "
         f"({acc_bound[1]}), {acc_bound[0] / acc_ms:.1%} of bound; "
-        f"{accum_resources(curve.name)}; grid {blocks} blocks, {live} "
+        f"{kernel_resources('msm_accum_kernel', ACCUM_FIELD[curve.name])}; "
+        f"grid {blocks} blocks, {live} "
         f"with a live lane, {resident} resident = "
         f"{blocks / resident:.2f} waves ({live / resident:.2f} live)")
     if not compare:
@@ -1703,8 +1707,18 @@ def scale_poll(mul_rate) -> None:
 # -- the fixed-base multiply of setup and zkey generation (phases 3 and 9) ----
 
 FIXED_BASE_KERNELS = ("fixed_base_g1", "fixed_base_g2")
-FIXED_SLICE = 1 << 16       # scalars a slice held bit for bit against plain
 FIXED_HOST = 1024           # decoded points a curve against the host multiply
+# Fq products a point of the fixed base's affine epilogue, in the function's
+# yardstick: 3 for the batched inversion, the coordinates' products (G1:
+# x, y; G2: the norm's 2, conj(Z) / d's 2, x and y as Fq2 products, 2 x 3)
+# and 1 a coordinate out of Montgomery form (2 at G1, 4 at G2); and one
+# inversion a block of GROUP points, counted as a binary Euclid's 256
+# division steps of 17 multiplies (a quotient digit and a 256 x 32-bit
+# product's low and high halves)
+FIXED_EPILOGUE_MULS = {"g1": 3 + 2 + 2, "g2": 3 + 2 + 2 + 2 * 3 + 4}
+INVERSION_MULS = 256 * 17
+# the field types in the kernels' mangled names (nvcc's resource report)
+FIXED_FIELD = {"g1": "11FqTwoChains", "g2": "12Fq2TwoChains"}
 
 
 class FixedBaseSplit:
@@ -1776,30 +1790,31 @@ class FixedBaseSplit:
 
 def fixed_base_kernels(split: FixedBaseSplit, mul_rate) -> dict:
     """Phase 9: each fixed-base call of `generate_zkey` held against the
-    plain version (`mul_words_plain`, the old path: `_mul_chunk` over
-    chunks of 2^17) bit for bit on the card, on the first and the last
-    FIXED_SLICE scalars of G1 (the last covers `h_s`) and the first of G2;
-    FIXED_HOST decoded points a curve, spread over the list, against the
-    host multiply; the kernel alone at the call's full shape beside its
-    bound (the mixed adds this run's digits need) and the plain version
-    at the full shape once. Returns the report's rows."""
+    plain version (`mul_words_plain`: `_mul_chunk` over chunks of 2^17,
+    then `normalize_plain`) bit for bit on the card over every scalar of
+    the call, the plain version timed once at that full shape; FIXED_HOST
+    decoded points a curve, spread over the list, against the host
+    multiply; the kernel alone at the full shape beside its bound (the
+    mixed adds this run's digits need, with and without the affine
+    epilogue's products and inversions), its registers, resident blocks
+    and waves. Returns the report's rows."""
+    from infimum_tpu_torch import kernels
     from infimum_tpu_torch.curve.bn254_host import fixed_base_mul_host
     from infimum_tpu_torch.curve.proj import CURVES
     from infimum_tpu_torch.ff.fp import device_key
     from infimum_tpu_torch.msm import fixed_base as fb
 
     rows = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for call in split.calls:
         name, sc, n = call["curve"], call["sc"], call["n"]
         curve = CURVES[name]
-        slices = [slice(0, FIXED_SLICE)] + (
-            [slice(n - FIXED_SLICE, n)] if name == "g1" else [])
-        for sl in slices:
-            part = sc[sl].contiguous()
-            if not torch.equal(fb.mul_words(part, curve),
-                               fb.mul_words_plain(part, curve)):
-                raise AssertionError(f"fixed_base_{name}: kernel and plain "
-                                     f"differ on scalars {sl}")
+        torch.cuda.synchronize()
+        plain_ms, plain = cuda_ms(lambda: fb.mul_words_plain(sc, curve), 1)
+        if not torch.equal(fb.mul_words(sc, curve), plain):
+            raise AssertionError(f"fixed_base_{name}: kernel and plain "
+                                 f"differ over the call's {n} scalars")
+        del plain
         pick = np.linspace(0, n - 1, FIXED_HOST).round().astype(int)
         got = fb.decode_words(fb.mul_words(sc[torch.from_numpy(pick).to(
             sc.device)].contiguous(), curve), curve)
@@ -1807,23 +1822,33 @@ def fixed_base_kernels(split: FixedBaseSplit, mul_rate) -> dict:
         if got != want:
             raise AssertionError(f"fixed_base_{name}: decoded points differ "
                                  f"from the host multiply")
-        ms, enqueue, _ = alone_ms(lambda: fb.mul_words(sc, curve), 3)
+        ms, enqueue, _ = alone_ms(lambda: fb.mul_words(sc, curve), 10)
+        clocks = smi("clocks.sm,power.draw,temperature.gpu")
         adds = int((sc.view(torch.uint8) != 0).sum())      # a digit a byte
-        out_bytes = n * 3 * 4 * (8 if name == "g1" else 16)
+        out_bytes = n * 2 * 4 * (8 if name == "g1" else 16)
         table = fb.table_words(name, device_key(sc.device))
-        bnd = bound(nbytes(sc, table) + out_bytes, adds * MIXED_MULS[name],
-                    mul_rate)
-        torch.cuda.synchronize()
-        plain_ms, _ = cuda_ms(lambda: fb.mul_words_plain(sc, curve), 1)
+        groups = -(-n // fb.GROUP)
+        loop = bound(nbytes(sc, table) + out_bytes, adds * MIXED_MULS[name],
+                     mul_rate)
+        bnd = bound(nbytes(sc, table) + out_bytes,
+                    adds * MIXED_MULS[name] + n * FIXED_EPILOGUE_MULS[name]
+                    + groups * INVERSION_MULS / MULS_PER_MONT, mul_rate)
+        usage = kernel_resources("fixed_base_kernel", FIXED_FIELD[name])
+        blocks = kernels.fixed_base_blocks_per_sm(name)
+        waves = n / (blocks * fb.GROUP * sms)
         rows[f"fixed_base_{name}"] = (0, ms, plain_ms, *bnd, None)
         log(f"[zkey] fixed_base_{name}: {n} scalars, {adds} mixed adds "
-            f"(nonzero digits); bit-equal to plain on "
-            f"{', '.join(f'[{s.start}, {s.stop})' for s in slices)}; "
+            f"(nonzero digits), {groups} inversions; bit-equal to plain "
+            f"over all {n} scalars (affine standard-form words); "
             f"{FIXED_HOST} decoded points equal to fixed_base_mul_host; "
-            f"kernel alone {ms:.3f} ms (enqueue {enqueue:.3f} ms) against "
-            f"bound {bnd[0]:.3f} ms ({bnd[1]}, {bnd[0] / ms:.1%}); plain "
-            f"(the old path, _mul_chunk over chunks of {fb.CHUNK}) "
-            f"{plain_ms:.1f} ms at the full shape; card {card_line()}")
+            f"kernel alone {ms:.3f} ms (enqueue {enqueue:.3f} ms; SM clock, "
+            f"power, temperature just after: {clocks}) against "
+            f"bound {bnd[0]:.3f} ms ({bnd[1]}, {bnd[0] / ms:.1%}; the "
+            f"main loop's alone {loop[0]:.3f} ms, {loop[0] / ms:.1%}); "
+            f"{usage}, {blocks} blocks of {fb.GROUP} an SM, {waves:.2f} "
+            f"waves; plain (_mul_chunk over chunks of {fb.CHUNK}, then "
+            f"normalize_plain) {plain_ms:.1f} ms at the full shape; card "
+            f"{card_line()}")
     return rows
 
 

@@ -2,7 +2,9 @@
 // addition formulas, as __device__ code for the MSM kernels (msm_accum.cu,
 // msm_weighted.cu, msm_layout.cu), the fixed-base multiply
 // (fixed_base.cu), the cross-rank sum (point_sum.cu) and the Fr kernels
-// (poseidon_perm.cu, fr_ntt.cu, fr_rows.cu).
+// (poseidon_perm.cu, fr_ntt.cu, fr_rows.cu). The fixed-base multiply alone
+// runs over a second Montgomery product of two carry chains
+// (`two_chains::mul`, FqTwoChains, Fq2TwoChains).
 //
 // Replaces the in-kernel helpers of infimum_tpu/msm/pallas_field.py (Fq,
 // Fq2, rcb_add, rcb_add_mixed) and infimum_tpu/ff/pallas_fp.py (Fr). A
@@ -332,6 +334,136 @@ struct Fq2OutOfLine : Fq2 {
 
   // x * 3b2 (3b2 = k0 + k1 u) as one out-of-line product by the constant:
   // 3 Fq products
+  static __device__ __forceinline__ E b3(const E& x) {
+    constexpr uint32_t K0[8] = INF_G2_B3_C0;
+    constexpr uint32_t K1[8] = INF_G2_B3_C1;
+    return mul(x, {Fq::constant(K0), Fq::constant(K1)});
+  }
+};
+
+// The Montgomery product a * b * 2^-256 mod p with two independent carry
+// chains, the running sum kept as an aligned part E (words 0..8) and an
+// offset part O (words 1..9): a row adds the even words' products a_j b_i
+// (low half at word j, high at j + 1) into E and the odd words' into O,
+// one chain each, and so does the reduction by m = E[0] (-p^-1) mod 2^32
+// (E[0] is the sum's word 0: O has none). After the division by 2^32 the
+// old O is the aligned part and the old E, two words down, the offset
+// part; one add of the old E's word 1 into the old O's word 0 joins them,
+// and its carry opens the next row's offset chain. The parts are added
+// once at the end: t < 2p, then one conditional subtraction. Fp::mul's
+// rows are one chain of 32 dependent steps; here two of 8 run side by
+// side, twice a row. Same count of multiplies; the same value, below p,
+// as Fp::mul for a, b < p.
+namespace two_chains {
+
+__device__ __forceinline__ uint32_t add_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// E += m p_even, O += m p_odd with m = E[0] (-p^-1): E[0] becomes 0
+template <class Params>
+__device__ __forceinline__ void reduce(uint32_t (&e)[9], uint32_t (&o)[9]) {
+  const uint32_t m = e[0] * Params::INV;
+  o[0] = ptx::mad_lo_cc(m, Params::p(1), o[0]);
+  o[1] = ptx::madc_hi_cc(m, Params::p(1), o[1]);
+#pragma unroll
+  for (int j = 3; j < 8; j += 2) {
+    o[j - 1] = ptx::madc_lo_cc(m, Params::p(j), o[j - 1]);
+    o[j] = ptx::madc_hi_cc(m, Params::p(j), o[j]);
+  }
+  o[8] = ptx::addc(o[8], 0);
+  e[0] = ptx::mad_lo_cc(m, Params::p(0), e[0]);
+  e[1] = ptx::madc_hi_cc(m, Params::p(0), e[1]);
+#pragma unroll
+  for (int j = 2; j < 8; j += 2) {
+    e[j] = ptx::madc_lo_cc(m, Params::p(j), e[j]);
+    e[j + 1] = ptx::madc_hi_cc(m, Params::p(j), e[j + 1]);
+  }
+  e[8] = ptx::addc(e[8], 0);
+}
+
+template <class Params>
+__device__ __forceinline__ typename Fp<Params>::E mul(
+    const typename Fp<Params>::E& a, const typename Fp<Params>::E& b) {
+  uint32_t e[9], o[9];
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) {
+    e[j] = a.w[j] * b.w[0];
+    e[j + 1] = __umulhi(a.w[j], b.w[0]);
+    o[j] = a.w[j + 1] * b.w[0];
+    o[j + 1] = __umulhi(a.w[j + 1], b.w[0]);
+  }
+  e[8] = 0;
+  o[8] = 0;
+  reduce<Params>(e, o);
+#pragma unroll
+  for (int i = 1; i < 8; ++i) {
+    const uint32_t bi = b.w[i];
+    uint32_t ne[9], no[9];
+    ne[0] = add_cc(o[0], e[1]);
+    no[0] = ptx::madc_lo_cc(a.w[1], bi, e[2]);
+    no[1] = ptx::madc_hi_cc(a.w[1], bi, e[3]);
+    no[2] = ptx::madc_lo_cc(a.w[3], bi, e[4]);
+    no[3] = ptx::madc_hi_cc(a.w[3], bi, e[5]);
+    no[4] = ptx::madc_lo_cc(a.w[5], bi, e[6]);
+    no[5] = ptx::madc_hi_cc(a.w[5], bi, e[7]);
+    no[6] = ptx::madc_lo_cc(a.w[7], bi, e[8]);
+    no[7] = ptx::madc_hi_cc(a.w[7], bi, 0);
+    no[8] = ptx::addc(0, 0);
+    ne[0] = ptx::mad_lo_cc(a.w[0], bi, ne[0]);
+    ne[1] = ptx::madc_hi_cc(a.w[0], bi, o[1]);
+#pragma unroll
+    for (int j = 2; j < 8; j += 2) {
+      ne[j] = ptx::madc_lo_cc(a.w[j], bi, o[j]);
+      ne[j + 1] = ptx::madc_hi_cc(a.w[j], bi, o[j + 1]);
+    }
+    ne[8] = ptx::addc(o[8], 0);
+#pragma unroll
+    for (int j = 0; j < 9; ++j) {
+      e[j] = ne[j];
+      o[j] = no[j];
+    }
+    reduce<Params>(e, o);
+  }
+  uint32_t t[8];
+  t[0] = add_cc(e[1], o[0]);
+#pragma unroll
+  for (int k = 1; k < 8; ++k) t[k] = ptx::addc_cc(e[k + 1], o[k]);
+  typename Fp<Params>::E d, r;  // t < 2p: subtract p once where t >= p
+  d.w[0] = ptx::sub_cc(t[0], Params::p(0));
+#pragma unroll
+  for (int j = 1; j < 8; ++j) d.w[j] = ptx::subc_cc(t[j], Params::p(j));
+  const uint32_t borrow = ptx::subc(0, 0);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.w[j] = borrow ? t[j] : d.w[j];
+  return r;
+}
+
+}  // namespace two_chains
+
+// Fq with the two-chain product out of line, by value as FqOutOfLine: the
+// fixed-base multiply's G1 field and its epilogue's
+struct FqTwoChains : Fq {
+  static __device__ __noinline__ E mul(E a, E b) {
+    return two_chains::mul<FqParams>(a, b);
+  }
+};
+
+// Fq2 over the two-chain product (Karatsuba, 3 products), out of line by
+// value: the fixed-base multiply's G2 field. By reference, as
+// Fq2OutOfLine, the G2 fixed-base kernel kept an 832-936 byte stack frame
+// and took 17-35% more time (PERF.md, section 6).
+struct Fq2TwoChains : Fq2 {
+  static __device__ __noinline__ E mul(E a, E b) {
+    const Fq::E v0 = two_chains::mul<FqParams>(a.c0, b.c0);
+    const Fq::E v1 = two_chains::mul<FqParams>(a.c1, b.c1);
+    const Fq::E s = two_chains::mul<FqParams>(Fq::add(a.c0, a.c1),
+                                              Fq::add(b.c0, b.c1));
+    return {Fq::sub(v0, v1), Fq::sub(Fq::sub(s, v0), v1)};
+  }
+
   static __device__ __forceinline__ E b3(const E& x) {
     constexpr uint32_t K0[8] = INF_G2_B3_C0;
     constexpr uint32_t K1[8] = INF_G2_B3_C1;

@@ -228,6 +228,13 @@ def scatter_blocks_per_sm(curve: str) -> int:
     return query(f"inf_msm_scatter_blocks_per_sm_{curve}")
 
 
+def fixed_base_blocks_per_sm(curve: str) -> int:
+    """Resident blocks an SM of the fixed-base multiply's instance for
+    `curve` on the current card (CUDA's occupancy calculator, its shared
+    product tree included)."""
+    return query(f"inf_fixed_base_blocks_per_sm_{curve}")
+
+
 def perm_main_variant() -> int:
     """The Poseidon kernel's main instance as `inf_poseidon_perm_variant`
     numbers its variants (bit 0: product out of line; bit 1: tables in
