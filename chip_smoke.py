@@ -323,7 +323,7 @@ def query_inputs(pk, cs, witness):
 RESOURCES = re.compile(
     r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, (\d+) bytes "
     r"spill stores, (\d+) bytes spill loads(?:\nptxas info\s*: Used (\d+) "
-    r"registers)?")
+    r"registers(?:, used \d+ barriers)?(?:, (\d+) bytes smem)?)?")
 
 
 def kernel_resources(kernel: str, field: str) -> str:
@@ -1709,14 +1709,14 @@ def scale_poll(mul_rate) -> None:
 FIXED_BASE_KERNELS = ("fixed_base_g1", "fixed_base_g2")
 FIXED_HOST = 1024           # decoded points a curve against the host multiply
 # Fq products a point of the fixed base's affine epilogue, in the function's
-# yardstick: 3 for the batched inversion, the coordinates' products (G1:
-# x, y; G2: the norm's 2, conj(Z) / d's 2, x and y as Fq2 products, 2 x 3)
-# and 1 a coordinate out of Montgomery form (2 at G1, 4 at G2); and one
-# inversion a block of GROUP points, counted as a binary Euclid's 256
-# division steps of 17 multiplies (a quotient digit and a 256 x 32-bit
-# product's low and high halves)
-FIXED_EPILOGUE_MULS = {"g1": 3 + 2 + 2, "g2": 3 + 2 + 2 + 2 * 3 + 4}
-INVERSION_MULS = 256 * 17
+# yardstick: 3 for the batched inversion's product tree, then the
+# coordinates' (G1: x, y; G2: the norm's 2, conj(Z) / d's 2, x and y as Fq2
+# products, 2 x 3). The tree's leaves come out as standard-form 1 / d, so
+# those products leave Montgomery form at once and none is spent on that.
+# And one inversion a block of GROUP points: the almost inverse's one
+# Montgomery product (the rest of it is subtractions and shifts)
+FIXED_EPILOGUE_MULS = {"g1": 3 + 2, "g2": 3 + 2 + 2 + 2 * 3}
+INVERSION_MULS = 1
 # the field types in the kernels' mangled names (nvcc's resource report)
 FIXED_FIELD = {"g1": "11FqTwoChains", "g2": "12Fq2TwoChains"}
 
@@ -1832,7 +1832,7 @@ def fixed_base_kernels(split: FixedBaseSplit, mul_rate) -> dict:
                      mul_rate)
         bnd = bound(nbytes(sc, table) + out_bytes,
                     adds * MIXED_MULS[name] + n * FIXED_EPILOGUE_MULS[name]
-                    + groups * INVERSION_MULS / MULS_PER_MONT, mul_rate)
+                    + groups * INVERSION_MULS, mul_rate)
         usage = kernel_resources("fixed_base_kernel", FIXED_FIELD[name])
         blocks = kernels.fixed_base_blocks_per_sm(name)
         waves = n / (blocks * fb.GROUP * sms)

@@ -7,8 +7,8 @@ this tree's, in turns on one card, at `generate_zkey`'s two calls.
 First, as smoke phase 9 does, the process circuit's zkey
 (ProcessMessages(10,2,1,2), phase 9's seed) is generated on the card with
 each fixed-base call split into encoding, device part and decode
-(`chip_smoke.FixedBaseSplit`); the decode of each call's output is then
-split further by a host clock (`decode_split`). The two calls' scalar
+(`chip_smoke.FixedBaseSplit`), and this tree's decode (`decode_words`) of
+each call's output is timed again by a host clock. The two calls' scalar
 words (G1 and G2) are the cases below.
 
 Variants: this tree's source; each LABEL=SOURCE given (a whole
@@ -48,19 +48,12 @@ import chip_smoke  # noqa: E402
 from infimum_tpu_torch import kernels  # noqa: E402
 from infimum_tpu_torch.client.e2e import REFERENCE_CONFIG  # noqa: E402
 from infimum_tpu_torch.client.prover import ProverKeys  # noqa: E402
-from infimum_tpu_torch.curve.bn254_host import _fq2_mul  # noqa: E402
 from infimum_tpu_torch.curve.proj import CURVES  # noqa: E402
-from infimum_tpu_torch.ff.bn254 import FQ_MOD, batch_inv_mod  # noqa: E402
-from infimum_tpu_torch.ff.fp import FQ_CTX, words_to_limbs  # noqa: E402
 from infimum_tpu_torch.groth16 import zkey as Z  # noqa: E402
 from infimum_tpu_torch.msm import fixed_base as fb  # noqa: E402
 
 SOURCE = "fixed_base.cu"
 REPS = 10
-RESOURCES = re.compile(
-    r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, (\d+) bytes "
-    r"spill stores, (\d+) bytes spill loads\nptxas info\s*: Used (\d+) "
-    r"registers(?:, used \d+ barriers)?(?:, (\d+) bytes smem)?")
 # an SM of compute capability 9.0: registers, threads, blocks, shared memory
 # (bytes, 1 KB of it reserved a block)
 SM_REGS, SM_THREADS, SM_BLOCKS, SM_SMEM = 65536, 2048, 32, 233472
@@ -288,7 +281,7 @@ class Variant:
         self.threads = int(re.search(r"constexpr int kFixedBlock = (\d+);",
                                      text).group(1))
         self.usage = {}
-        for m in RESOURCES.finditer(log):
+        for m in chip_smoke.RESOURCES.finditer(log):
             if "fixed_base" not in m.group(1):
                 continue
             curve = "g2" if "Fq2" in m.group(1) else "g1"
@@ -361,79 +354,6 @@ def zkey_calls():
     return split.calls
 
 
-def decode_split(out: torch.Tensor, curve_name: str) -> str:
-    """The decode of one call's output split by a host clock. Affine
-    words: the words' conversion to ints (`decode_words`, all of it).
-    Projective words (commit 8d98e63's contract): the three coordinates
-    out of Montgomery form and to ints, the norms (G2), the batched inversion
-    `batch_inv_mod`, and the products a point; and, beside them, the
-    two affine coordinates' words to ints alone, what is left when the
-    card hands back affine standard-form words."""
-    curve = CURVES[curve_name]
-    torch.cuda.synchronize()
-    if out.shape[1] == 2 * fb.WORDS * curve.fdims:
-        t0 = time.perf_counter()
-        fb.decode_words(out, curve)
-        return f"decode_words {time.perf_counter() - t0:.3f} s"
-    t0 = time.perf_counter()
-    limbs = words_to_limbs(out).unflatten(-1, (3, *curve.fshape()))
-    xs, ys, zs = (curve._felts(FQ_CTX.from_mont(limbs[:, k]))
-                  for k in range(3))
-    t1 = time.perf_counter()
-    if curve.fdims == 1:
-        live = [z for z in zs if z]
-        t2 = time.perf_counter()
-        invs = iter(batch_inv_mod(live, FQ_MOD))
-        t3 = time.perf_counter()
-        pts = [None if z == 0 else (x * (zi := next(invs)) % FQ_MOD,
-                                    y * zi % FQ_MOD)
-               for x, y, z in zip(xs, ys, zs)]
-    else:
-        live = [(z[0] * z[0] + z[1] * z[1]) % FQ_MOD for z in zs
-                if z != (0, 0)]
-        t2 = time.perf_counter()
-        invs = iter(batch_inv_mod(live, FQ_MOD))
-        t3 = time.perf_counter()
-        pts = []
-        for x, y, z in zip(xs, ys, zs):
-            if z == (0, 0):
-                pts.append(None)
-                continue
-            ni = next(invs)
-            zi = (z[0] * ni % FQ_MOD, (FQ_MOD - z[1]) * ni % FQ_MOD)
-            pts.append((_fq2_mul(x, zi), _fq2_mul(y, zi)))
-    t4 = time.perf_counter()
-    # the affine coordinates' words alone, as the card would hand them back
-    aff = affine_words(pts, curve_name)
-    t5 = time.perf_counter()
-    ints_of_words(aff)
-    t6 = time.perf_counter()
-    return (f"coordinates from Montgomery form to ints {t1 - t0:.3f} s, "
-            f"{'Z' if curve.fdims == 1 else 'norms'} {t2 - t1:.3f} s, "
-            f"batch_inv_mod {t3 - t2:.3f} s, products {t4 - t3:.3f} s "
-            f"(whole {t4 - t0:.3f} s); the affine coordinates' words to "
-            f"ints alone {t6 - t5:.3f} s")
-
-
-def affine_words(pts, curve_name: str) -> torch.Tensor:
-    """Host affine points (None for infinity) -> (n, 2W) int32 standard-form
-    words, x then y, (0, 0) for infinity."""
-    flat = bytearray()
-    for p in pts:
-        coords = ((0, 0) if curve_name == "g1" else (0, 0, 0, 0)) \
-            if p is None else (p if curve_name == "g1" else (*p[0], *p[1]))
-        flat += b"".join(c.to_bytes(32, "little") for c in coords)
-    width = 2 * fb.WORDS * CURVES[curve_name].fdims
-    return torch.frombuffer(flat, dtype=torch.int32).reshape(-1, width)
-
-
-def ints_of_words(words: torch.Tensor) -> list[int]:
-    """(n, 2W) int32 words -> the coordinates' ints, 32 bytes each."""
-    buf = words.cpu().numpy().tobytes()
-    return [int.from_bytes(buf[i:i + 32], "little")
-            for i in range(0, len(buf), 32)]
-
-
 def main(argv) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("sources", nargs="*", metavar="LABEL=SOURCE")
@@ -468,11 +388,12 @@ def main(argv) -> int:
                                   device=sc.device)
                 outs[label] = v(name, sc, tab, out)
                 torch.cuda.synchronize()
-            base = outs["this tree"]
+            t0 = time.perf_counter()
+            fb.decode_words(outs["this tree"], curve)
             print(f"[fixed_base] {name.upper()} {n} scalars, "
                   f"{int((sc.view(torch.uint8) != 0).sum())} nonzero "
-                  f"digits; this tree's decode: "
-                  f"{decode_split(base, name)}", flush=True)
+                  f"digits; this tree's decode: decode_words "
+                  f"{time.perf_counter() - t0:.3f} s", flush=True)
             if len(built) > 1:
                 affine = {label: fb.normalize_plain(outs[label], curve)
                           if v.projective else outs[label]

@@ -43,7 +43,8 @@
 // products are out of line, as in msm_accum.cu, and of two carry chains
 // (field.cuh `two_chains::mul`): FqTwoChains for G1 and the epilogue,
 // Fq2TwoChains for G2 (inlined, an Fq2 mixed add spills). Against the one
-// chain of Fp::mul the kernel takes 35% (G1) and 29% (G2) less time.
+// chain of Fp::mul the kernel takes 35% (G1) and 48% (G2) less time, in
+// turns in one run of bench/fixed_base_variants.py (PERF.md, section 6).
 // Measured and not kept (bench/fixed_base_variants.py): the next row
 // prefetched before each add, other launch-bounds minima, blocks of 64 or
 // 256 points.
