@@ -2251,19 +2251,42 @@ def multi_rank(mesh, files, work) -> dict:
 
 
 SUM_DS = (2, 4, 8)
+# the complete add's dependent products, split as the sum kernel splits it:
+# two layers of products, and for G2 the 3b products between them
+ADD_DEPTH = {"g1": 2, "g2": 3}
+# the two-chain product whose latency the chain bound takes
+CHAIN_PRODUCT = "two_chains::mul<FqParams> inlined"
 
 
-def sum_kernels(want, mul_rate) -> dict:
+def product_latencies() -> dict:
+    """The latency of one product on a lone thread, each product of
+    `bench/product_latency.py` (its own small library, built apart from
+    the kernels'): {name: us}. Prints them and the seconds it took."""
+    from infimum_tpu_torch.bench import product_latency
+
+    t0 = time.perf_counter()
+    us = product_latency.latencies()
+    log(f"[latency] one product on a lone thread, a dependent chain "
+        f"(bench/product_latency.py): " + "; ".join(
+            f"{name} {x:.4f} us" for name, x in us.items())
+        + f"; {time.perf_counter() - t0:.1f}s; card {card_line()}")
+    return us
+
+
+def sum_kernels(want, mul_rate, chain_us: float):
     """Phase 11 on one card: the sum kernel alone on D = 2, 4 and 8 points
     a window (the one-card MSM's window sums of `h` for G1 and `b2` for
     G2, entry i rolled by i windows), each equal to its plain version bit
-    for bit, beside its bound (T - 1 complete adds a window) and the plain
-    version's time. Returns the report's rows at D = 2 (a permute
-    round)."""
+    for bit, beside its operations bound (T - 1 complete adds a window),
+    its chain bound (log2 T levels x the add's product depth x `chain_us`,
+    one two-chain product's latency on a lone thread: no schedule of the
+    dependent adds takes less), their larger and the plain version's
+    time. Returns the report's rows at D = 2 (a permute round) and each
+    row's chain bound."""
     from infimum_tpu_torch.msm.msm import SPECS
     from infimum_tpu_torch.parallel import msm as PM
 
-    rows, lines = {}, []
+    rows, chains, lines = {}, {}, []
     for curve, name in (("g1", "h"), ("g2", "b2")):
         spec = SPECS[curve]
         wins = want["wins", name]
@@ -2278,14 +2301,20 @@ def sum_kernels(want, mul_rate) -> dict:
                                   MULTI_REPS, warm=1)
             adds = ((1 << (d - 1).bit_length()) - 1) * spec.n_windows
             bnd = bound(nbytes(every, got), adds * ADD_MULS[curve], mul_rate)
+            chain = (d - 1).bit_length() * ADD_DEPTH[curve] * chain_us * 1e-3
             if d == 2:
                 rows[f"point_sum_{curve}"] = (0, ms, plain_ms, *bnd, None)
+                chains[f"point_sum_{curve}"] = chain
+            top = max(bnd[0], chain)
             lines.append(f"{curve.upper()} D = {d}: kernel {ms:.4f} ms, "
                          f"bound {bnd[0]:.6f} ms ({bnd[1]}, {adds} adds), "
-                         f"plain {plain_ms:.3f} ms")
+                         f"chain bound {chain:.6f} ms, the larger "
+                         f"{top:.6f} ms ({top / ms:.1%}), plain "
+                         f"{plain_ms:.3f} ms")
     log(f"[multi] the sum kernel alone, bit-equal to plain: "
-        + "; ".join(lines) + f"; card {card_line()}")
-    return rows
+        + "; ".join(lines) + f"; the chain bound at {CHAIN_PRODUCT} "
+        f"{chain_us:.4f} us a product; card {card_line()}")
+    return rows, chains
 
 
 def twiddle_kernel(mul_rate) -> None:
@@ -2335,7 +2364,7 @@ def multi_worlds(cards: int):
     return worlds
 
 
-def multi_gpu_phase(run, trees, mul_rate):
+def multi_gpu_phase(run, trees, mul_rate, chain_us: float):
     """Phase 11: the port's `parallel/` over torch.distributed, one spawned
     process a rank. Every result equal to its one-card result, every rank
     of an MSM run launching all MSM kernel instances and the sum kernel
@@ -2344,8 +2373,8 @@ def multi_gpu_phase(run, trees, mul_rate):
     JAX on any rank; the sum kernel alone at D = 2, 4, 8 (`sum_kernels`)
     and the twiddle product alone at D = 1, 2, 4 (`twiddle_kernel`);
     prints each world's backend, cards and per-rank CUDA-event ms, and the
-    `msm_scaling` record. Returns the ranks' launch counts, summed, and
-    the sum kernel's report rows."""
+    `msm_scaling` record. Returns the ranks' launch counts, summed, the
+    sum kernel's report rows and their chain bounds."""
     import tempfile
 
     from infimum_tpu_torch.curve.proj import CURVES
@@ -2364,7 +2393,7 @@ def multi_gpu_phase(run, trees, mul_rate):
            "backend": {}, "cards": {}}
     with tempfile.TemporaryDirectory() as tmp:
         files, want = multi_inputs(run, trees, tmp)
-        sum_rows = sum_kernels(want, mul_rate)
+        sum_rows, sum_chains = sum_kernels(want, mul_rate, chain_us)
         twiddle_kernel(mul_rate)
         for d, backend, work in multi_worlds(cards):
             w0 = time.perf_counter()
@@ -2481,7 +2510,7 @@ def multi_gpu_phase(run, trees, mul_rate):
     log(f"[multi] launches over every rank {json.dumps(summed)}; phase 11 "
         f"{time.perf_counter() - t0:.1f}s")
     log(f"[multi] record {json.dumps({'msm_scaling': rec})}")
-    return summed, sum_rows
+    return summed, sum_rows, sum_chains
 
 
 PR_SET_CHILD_SUBREAPER = 36
@@ -2608,6 +2637,7 @@ def main(argv: list[str]) -> int:
             f"{src} " + ("cached" if t is None else f"{t:.1f}s")
             for src, t in kernels.BUILD_INFO["sources"].items()))
     log(kernels.BUILD_INFO["log"].strip())
+    chain_us = product_latencies()[CHAIN_PRODUCT]
 
     # 3. e2e at reference dims
     from infimum_tpu_torch import native
@@ -2648,7 +2678,7 @@ def main(argv: list[str]) -> int:
     if multi_only:
         # the phase's inputs: the e2e's key and witness, the poll's trees
         _, _, trees = poll_trees(native)
-        multi_gpu_phase(run, trees, mul_rate)
+        multi_gpu_phase(run, trees, mul_rate, chain_us)
         print(card_line())
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2720,7 +2750,8 @@ def main(argv: list[str]) -> int:
     parallel_phase(run)
 
     # 11. the multi-GPU slice; its ranks' launches join the report's
-    summed, sum_rows = multi_gpu_phase(run, trees, mul_rate)
+    summed, sum_rows, sum_chains = multi_gpu_phase(run, trees, mul_rate,
+                                                   chain_us)
     cmp.update(sum_rows)
     for name, n in summed.items():
         launches[name] = launches.get(name, 0) + n
@@ -2738,6 +2769,8 @@ def main(argv: list[str]) -> int:
                            max_abs_err=err, ms=ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=bound_by,
                            library_ms=library[0] if library else None))
+        if name in sum_chains:   # the sum's latency floor beside its bound
+            report[-1]["chain_bound_ms"] = sum_chains[name]
     print(json.dumps({"kernels": report}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 // addition formulas, as __device__ code for the MSM kernels (msm_accum.cu,
 // msm_weighted.cu, msm_layout.cu), the fixed-base multiply
 // (fixed_base.cu), the cross-rank sum (point_sum.cu) and the Fr kernels
-// (poseidon_perm.cu, fr_ntt.cu, fr_rows.cu). The fixed-base multiply alone
-// runs over a second Montgomery product of two carry chains
-// (`two_chains::mul`, FqTwoChains, Fq2TwoChains).
+// (poseidon_perm.cu, fr_ntt.cu, fr_rows.cu). The fixed-base multiply, the
+// cross-rank sum and the pointwise launch of fr_ntt.cu run over a second
+// Montgomery product of two carry chains (`two_chains::mul`, FqTwoChains,
+// Fq2TwoChains; `two_chains::mul<FrParams>` in the pointwise launch).
 //
 // Replaces the in-kernel helpers of infimum_tpu/msm/pallas_field.py (Fq,
 // Fq2, rcb_add, rcb_add_mixed) and infimum_tpu/ff/pallas_fp.py (Fr). A

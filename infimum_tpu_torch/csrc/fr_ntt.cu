@@ -82,7 +82,11 @@
 //   2^(s-1) - 1 + (p & (2^(s-1) - 1)), the tile's packed table; stages
 //   12-18 read 8.3 MB of it, through the read-only cache, and L2 (50 MB)
 //   holds it across the batch.
-// The pointwise launch: one thread a value, out = (a [x b] [- c]) [x k].
+// The pointwise launch: one thread a value, out = (a [x b] [- c]) [x k],
+// blocks of kThreads, over the two-chain product (variants in turns,
+// PERF.md section 6: 2 or 4 values a thread, and smaller blocks where the
+// grid gives an SM few, lost or moved nothing; the one chain of Fr::mul
+// took 15-25% more time).
 // The leading dim B is the grid's y, so the three transforms of a prove's
 // a, b, c run in one launch a pass.
 #include <cuda_runtime.h>
@@ -401,6 +405,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// out[i] = (a[i] [x b[i]] [- c[i]]) [x k], a thread a value. The products
+// are field.cuh's two-carry-chain two_chains::mul<FrParams>, 15-25% less
+// time than Fr::mul's one chain at each shape (PERF.md, section 6): its
+// one conditional subtraction at the end needs t < 2r there, which holds
+// as it does for q since r < 2^254 (R > 4r).
 __global__ void __launch_bounds__(kThreads)
     fr_pointwise_kernel(const uint32_t* __restrict__ a,
                         const uint32_t* __restrict__ b,
@@ -410,9 +419,9 @@ __global__ void __launch_bounds__(kThreads)
   const size_t i = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Fr::E x = load_value(a + 8 * i);
-  if (b) x = Fr::mul(x, load_value(b + 8 * i));
+  if (b) x = two_chains::mul<FrParams>(x, load_value(b + 8 * i));
   if (c) x = Fr::sub(x, load_value(c + 8 * i));
-  if (k) x = Fr::mul(x, load_value(k));
+  if (k) x = two_chains::mul<FrParams>(x, load_value(k));
   store_value(out + 8 * i, x);
 }
 

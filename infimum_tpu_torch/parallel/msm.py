@@ -37,6 +37,10 @@ from ..msm.msm import (
 )
 from . import distributed as D
 
+# the sum kernel keeps a level of up to this many points a window in shared
+# memory and larger levels in the scratch: csrc/point_sum.cu kLevelPoints
+LEVEL_POINTS = 16
+
 
 def _tree_reduce_axis0(curve: CurveDev, pts):
     """Sum (n, ...) projective points over axis 0: padded to a power of two
@@ -85,9 +89,11 @@ def point_sum(words: torch.Tensor, curve: str = "g1") -> torch.Tensor:
     d, nwin = words.shape[:2]
     if d == 1:
         return words[0].clone()
-    # the levels after the first: T / 2 points a window, T >= d a power of 2
-    scratch = words.new_empty((1 << (d - 1).bit_length() - 1, nwin, spec.PW)
-                              ) if d > 2 else None
+    # T / 2 points a window, T >= d a power of 2: the levels the kernel
+    # keeps out of shared memory
+    half = 1 << (d - 1).bit_length() - 1
+    scratch = words.new_empty((half, nwin, spec.PW)) \
+        if half > LEVEL_POINTS else None
     out = words.new_empty((nwin, spec.PW))
     kernels.KERNELS[f"point_sum_{curve}"](words, scratch, out, d, nwin)
     return out

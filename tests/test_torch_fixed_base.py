@@ -17,6 +17,8 @@ import torch
 
 from infimum_tpu.curve.bn254_host import fixed_base_mul_host
 from infimum_tpu.ff.bn254 import FQ_MOD, FR_MOD
+from infimum_tpu.ff.fp import FR_CTX as REF_FR_CTX
+from infimum_tpu.ff.limbs import batch_from_limbs, batch_to_limbs
 
 from infimum_tpu_torch.curve.proj import CURVES
 from infimum_tpu_torch.ff.fp import (
@@ -186,6 +188,7 @@ def test_plain_chunks_join():
 
 R_MONT = (1 << 256) % FQ_MOD          # 1 in Montgomery form
 INV32 = -pow(FQ_MOD, -1, 1 << 32) % (1 << 32)   # field.cuh INF_FQ_INV
+INV32_FR = -pow(FR_MOD, -1, 1 << 32) % (1 << 32)   # field.cuh INF_FR_INV
 
 
 def _mont(a: int, b: int) -> int:
@@ -232,18 +235,21 @@ def _inv_r_over(a: int, steps: list | None = None) -> int:
     return _two_chain_mont(s, t)
 
 
-def _two_chain_mont(a: int, b: int) -> int:
-    """field.cuh `two_chains::mul` word by word, with its carries: the
-    running sum as an aligned part E (words 0..8) and an offset part O
-    (words 1..9), a row's even words' products into E and odd words' into
-    O, the reduction by m = E[0] (-q^-1) the same way, the parts re-paired
-    after each division by 2^32 with one add whose carry opens the next
-    row's O chain; checks every word stays 32 bits and no carry is lost,
-    E[0] = 0 after each reduction and the joined sum below 2q."""
+def _two_chain_mont(a: int, b: int, mod: int = FQ_MOD,
+                    inv32: int = INV32) -> int:
+    """field.cuh `two_chains::mul<Params>` word by word, with its carries,
+    for the modulus `mod` (q: FqParams; r: FrParams) and inv32 = -mod^-1
+    mod 2^32: the running sum as an aligned part E (words 0..8) and an
+    offset part O (words 1..9), a row's even words' products into E and
+    odd words' into O, the reduction by m = E[0] inv32 the same way, the
+    parts re-paired after each division by 2^32 with one add whose carry
+    opens the next row's O chain; checks every word stays 32 bits and no
+    carry is lost, E[0] = 0 after each reduction and the joined sum below
+    2 mod (the one conditional subtraction's premise)."""
     mask = (1 << 32) - 1
     aw = [(a >> (32 * i)) & mask for i in range(8)]
     bw = [(b >> (32 * i)) & mask for i in range(8)]
-    pw = [(FQ_MOD >> (32 * i)) & mask for i in range(8)]
+    pw = [(mod >> (32 * i)) & mask for i in range(8)]
     cc = [0]
 
     def mad(x, y, z, half, carry_in):       # one mad{c}.{lo,hi}.cc
@@ -266,7 +272,7 @@ def _two_chain_mont(a: int, b: int) -> int:
         acc[8] = top
 
     def reduce(e, o):
-        m = e[0] * INV32 & mask
+        m = e[0] * inv32 & mask
         chain(o, [(m, pw[j]) for j in (1, 3, 5, 7)], 0, False)
         chain(e, [(m, pw[j]) for j in (0, 2, 4, 6)], 0, False)
         assert e[0] == 0
@@ -287,31 +293,49 @@ def _two_chain_mont(a: int, b: int) -> int:
         reduce(e, o)
     t = sum(w << (32 * i) for i, w in enumerate(e[1:])) + sum(
         w << (32 * i) for i, w in enumerate(o))
-    assert t < 2 * FQ_MOD
-    return t - FQ_MOD if t >= FQ_MOD else t
+    assert t < 2 * mod
+    return t - mod if t >= mod else t
 
 
-def test_two_chain_product_model():
-    """The two-chain Montgomery product (field.cuh `two_chains::mul`, the
-    fixed-base kernel's) walked word by word gives a b / R mod q, the
-    plain version's `FQ_CTX.mont_mul`, at the edges (0, 1, q - 1, R mod q,
-    R^2 mod q), for b any power of 2 below 2^256 (the root's last
-    product) and at seeded pairs."""
+@pytest.mark.parametrize("field", ["fq", "fr"])
+def test_two_chain_product_model(field):
+    """The two-chain Montgomery product walked word by word gives a b / R
+    mod p. Fq (FqParams: the fixed-base kernel's and the sum's product):
+    against the plain version's `FQ_CTX.mont_mul`, at the edges (0, 1,
+    q - 1, R mod q, R^2 mod q), for b any power of 2 below 2^256 (the
+    root's last product) and at seeded pairs. Fr (FrParams, the pointwise
+    launch's product): against the JAX package's `FR_CTX.mont_mul`, at
+    the edges 0, 1, r - 1, R mod r, R^2 mod r and R^3 mod r (the key
+    load's k) and at seeded pairs."""
     rng = np.random.default_rng(21)
-    edges = [0, 1, 2, FQ_MOD - 1, FQ_MOD - 2, R_MONT, R_MONT * R_MONT %
-             FQ_MOD, 1 << 253]
-    seeded = [int.from_bytes(rng.bytes(32), "little") % FQ_MOD
+    if field == "fq":
+        mod, inv32 = FQ_MOD, INV32
+        edges = [0, 1, 2, FQ_MOD - 1, FQ_MOD - 2, R_MONT, R_MONT * R_MONT %
+                 FQ_MOD, 1 << 253]
+    else:
+        mod, inv32 = FR_MOD, INV32_FR
+        r_mont = (1 << 256) % FR_MOD
+        edges = [0, 1, FR_MOD - 1, r_mont, r_mont ** 2 % FR_MOD,
+                 r_mont ** 3 % FR_MOD]
+    r_inv = pow(1 << 256, -1, mod)
+    seeded = [int.from_bytes(rng.bytes(32), "little") % mod
               for _ in range(64)]
     pairs = ([(a, b) for a in edges for b in edges]
-             + list(zip(seeded[:32], seeded[32:]))
-             + [(x, 1 << e) for e, x in enumerate(seeded * 4)])
-    got = [_two_chain_mont(a, b) for a, b in pairs]
-    assert got == [a * b * FQ_CTX.r_inv % FQ_MOD for a, b in pairs]
-    limbs = FQ_CTX.mont_mul(ints_to_tensor([a for a, b in pairs[:96]],
-                                           "cpu"),
-                            ints_to_tensor([b for a, b in pairs[:96]],
-                                           "cpu"))
-    assert tensor_to_ints(limbs) == got[:96]
+             + list(zip(seeded[:32], seeded[32:])))
+    if field == "fq":
+        pairs += [(x, 1 << e) for e, x in enumerate(seeded * 4)]
+    got = [_two_chain_mont(a, b, mod, inv32) for a, b in pairs]
+    assert got == [a * b * r_inv % mod for a, b in pairs]
+    if field == "fq":
+        limbs = FQ_CTX.mont_mul(ints_to_tensor([a for a, b in pairs[:96]],
+                                               "cpu"),
+                                ints_to_tensor([b for a, b in pairs[:96]],
+                                               "cpu"))
+        assert tensor_to_ints(limbs) == got[:96]
+    else:
+        ref = REF_FR_CTX.mont_mul(batch_to_limbs([a for a, b in pairs]),
+                                  batch_to_limbs([b for a, b in pairs]))
+        assert batch_from_limbs(np.asarray(ref)) == got
 
 
 def _kernel_epilogue(curve, proj: torch.Tensor,

@@ -593,6 +593,39 @@ def test_pointwise_kernel_matches_plain_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_pointwise_kernel_sizes_on_card(cuda_device):
+    """One launch a call, equal to plain bit for bit: at n = 1, 3, 255,
+    2^16 - 1 and 2^16 + 1 (a.b - c x R^3, and a x table), and at the main
+    path's five shapes: the key load's x R^3 over 2^18 standard-form
+    values, the zkey's a.b - c x 1 over 2^18, the sharded NTT's twiddle
+    product over 2^18, 2^17 and 2^16 values."""
+    rng = np.random.default_rng(18)
+    dev = N.device_key(cuda_device)
+
+    def values(n):
+        w = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.int64)
+        w[:, 7] %= FR_MOD >> 224                       # below r
+        return torch.from_numpy(w.astype(np.int32)).to(cuda_device)
+    r3 = N.fr_const(FR_CTX.R2 * FR_CTX.R, dev, mont=False)
+    one = N.fr_const(1, dev, mont=False)
+    cases = []
+    for n in (1, 3, 255, (1 << 16) - 1, (1 << 16) + 1):
+        cases += [(values(n), values(n), values(n), r3),
+                  (values(n), values(n), None, None)]
+    cases += [(values(1 << 18), None, None, r3),
+              (values(1 << 18), values(1 << 18), values(1 << 18), one)]
+    cases += [(values(n), values(n), None, None)
+              for n in (1 << 18, 1 << 17, 1 << 16)]
+    k = kernels.KERNELS["fr_pointwise"]
+    for args in cases:
+        before = k.launches
+        got = N.pointwise(*args)
+        torch.cuda.synchronize()
+        assert k.launches == before + 1
+        assert torch.equal(got, N.pointwise_plain(*args))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", ["toy", "chain200", "process_mix",
                                   "long_row", "zkey_empty_padding"])
 def test_rows_and_h_kernels_match_plain_on_card(cuda_device, name):

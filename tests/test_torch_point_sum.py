@@ -3,12 +3,18 @@
 `_tree_reduce_axis0` and host affine sums, on the CPU, with no process
 group.
 
-D = 1, 2, 3, 4, 5 and 8 projective points a window, G1 and G2, each a
-random projective scaling of an affine point, with windows of infinity
-entries (two forms of it), a point plus itself and a point plus its
-negation. The kernel's walk over the halving levels is modelled with the
-port's torch curve and held against the plain version bit for bit. The
-kernel itself runs only on a card (`cuda` marker)."""
+D = 1, 2, 3, 4, 5, 7, 8 and 16 projective points a window (33 and 64
+for the levels through the scratch), G1 and G2, each a random projective
+scaling of an affine point, with windows of infinity entries (two forms
+of it), a point plus itself and a point plus its negation. The kernel's
+schedule (its halving levels, each complete add split over a warp's
+lanes in RCB Alg. 7's steps, every value through the warp's slots) is
+modelled lane by lane with the port's torch Fq ops and held against the
+plain version bit for bit. The kernel itself runs only on a card (`cuda`
+marker)."""
+
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -29,7 +35,7 @@ torch.set_num_threads(1)  # the suite runs in parallel worker processes
 
 HOST = {"g1": (g1_add, g1_neg), "g2": (g2_add, g2_neg)}
 REF = {"g1": REF_G1, "g2": REF_G2}
-DS = (1, 2, 3, 4, 5, 8)
+DS = (1, 2, 3, 4, 5, 7, 8, 16)
 
 
 def _case(curve: str, d: int, seed: int):
@@ -120,32 +126,146 @@ def _old_limbs_path(curve, words):
                                                         spec.PR))
 
 
-def _kernel_walk(curve, words):
-    """The kernel's walk, modelled with the port's torch curve: half = T/2;
-    the first level adds input i and i + half (infinity at or above D)
-    into the scratch (the output when half is 1), then each level adds
-    scratch i and i + half in place. At D = 1 the wrapper launches
-    nothing and returns the entry."""
-    spec = SPECS[curve]
-    cdev = spec.curve
-    d, nwin = words.shape[:2]
-    limbs = words_to_limbs(words).unflatten(-1, (3, *cdev.fshape()))
-    entry = [tuple(limbs[i, :, k] for k in range(3)) for i in range(d)]
-    if d == 1:
-        out = entry[0]
+# csrc/point_sum.cu's value slots (Slots<K>): G1 a slot a value; G2 a
+# slot an Fq component or a Karatsuba part
+SLOTS = {1: dict(P=0, T3=6, T4=7, Y3=8, T0x3=9, B=10, Z3=12, T1n=13, Y3b=11,
+                 Q=14),
+         2: dict(P=18, T3=30, T4=32, Y3=34, T0x3=36, B=38, Z3=44, T1n=46,
+                 Y3b=48, Q=50)}
+
+
+def _warp_add(K, p, q):
+    """One complete add as the kernel's warp runs it (`warp_add`), lane by
+    lane and step by step, each lane's value through the warp's slots:
+    p, q are lists of 3 K Fq limb tensors (nwin, 16), coordinate-major
+    (X, Y, Z), component-minor (c0, c1); returns P + Q the same way."""
+    F = FQ_CTX
+    S = SLOTS[K]
+    parts = 1 if K == 1 else 3
+    s = {}
+
+    def sp(j, c):                       # Slots<K>::p: P_j, component c
+        return S["P"] + (j if K == 1 else 2 * j + c)
+
+    def joined(base, c):                # a Karatsuba product's component
+        x = s[base + (2 if c else 0)]
+        if c:
+            x = F.sub(x, s[base])
+        return F.sub(x, s[base + 1])
+
+    def first_operand(pt, j, k):
+        ca, cb = (j if j < 3 else (1 if j == 4 else 0)), (1 if j == 3 else 2)
+
+        def part(c):
+            x = pt[ca * K + c]
+            if j >= 3:
+                x = F.add(x, pt[cb * K + c])
+            return x
+        if K == 1:
+            return part(0)
+        x = part(0 if k == 2 else k)
+        return F.add(x, part(1)) if k == 2 else x
+
+    for lane in range(6 * parts):       # 1. the first products
+        j, k = divmod(lane, parts)
+        s[S["P"] + j if K == 1 else 3 * j + k] = F.mont_mul(
+            first_operand(p, j, k), first_operand(q, j, k))
+    if K == 2:                          # the parts joined into P_j
+        for lane in range(12):
+            s[sp(lane >> 1, lane & 1)] = joined(3 * (lane >> 1), lane & 1)
+    for lane in range(4 * K):           # 2. t3, t4, y3, t0x3
+        u, c = divmod(lane, K)
+        x, y, z = (3, 4, 5, 0)[u], (0, 1, 0, 0)[u], (1, 2, 2, 0)[u]
+        t = F.add(s[sp(y, c)], s[sp(z, c)])
+        s[S["T3"] + K * u + c] = (F.sub(s[sp(x, c)], t) if u < 3
+                                  else F.add(t, s[sp(x, c)]))
+    if K == 1:                          # 3. B0 = 3b P2, B1 = 3b y3
+        for lane in range(2):
+            x = s[S["Y3"] if lane else sp(2, 0)]
+            x2 = F.add(x, x)
+            x4 = F.add(x2, x2)
+            s[S["B"] + lane] = F.add(F.add(x4, x4), x)
     else:
-        half = 1
-        while 2 * half < d:
-            half *= 2
-        inf = cdev.infinity((nwin,), "cpu")
-        scratch = [cdev.add(entry[i], entry[i + half] if i + half < d
-                            else inf) for i in range(half)]
-        while half > 1:
-            half //= 2
-            for i in range(half):
-                scratch[i] = cdev.add(scratch[i], scratch[i + half])
-        out = scratch[0]
-    return limbs_to_words(torch.cat([c.flatten(1) for c in out], 1))
+        k0, k1 = SPECS["g2"].curve.b3("cpu").unbind(0)   # 3 b2, (c0, c1)
+        for lane in range(6):
+            which, k = divmod(lane, 3)
+            x = S["Y3"] if which else sp(2, 0)
+            a, b = s[x + (k == 1)], (k1 if k == 1 else k0)
+            if k == 2:
+                a, b = F.add(a, s[x + 1]), F.add(k0, k1)
+            s[S["B"] + lane] = F.mont_mul(a, b.expand_as(a))
+    for lane in range(2 if K == 1 else 6):  # 4. Z3, t1n (Y3b)
+        u, c = divmod(lane, K)
+        b = s[S["B"]] if K == 1 else joined(S["B"] + (3 if u == 2 else 0), c)
+        t1 = s[sp(1, c)]
+        s[S["Z3"] + K * u + c] = (F.add(t1, b) if u == 0 else
+                                  F.sub(t1, b) if u == 1 else b)
+    ops = [("T4", "Y3b"), ("T3", "T1n"), ("Y3b", "T0x3"), ("T1n", "Z3"),
+           ("T0x3", "T3"), ("Z3", "T4")]
+    for lane in range(6 * parts):       # 5. the last products
+        j, k = divmod(lane, parts)
+        ia, ib = (S[n] for n in ops[j])
+        a, b = s[ia + (k == 1)], s[ib + (k == 1)]
+        if k == 2:
+            a, b = F.add(a, s[ia + 1]), F.add(b, s[ib + 1])
+        s[S["Q"] + (j if K == 1 else lane)] = F.mont_mul(a, b)
+    out = [None] * (3 * K)
+    for lane in range(3 * K):           # 6. X3, Y3, Z3
+        o, c = divmod(lane, K)
+        hi, lo = ((s[S["Q"] + 2 * o + 1], s[S["Q"] + 2 * o]) if K == 1 else
+                  (joined(S["Q"] + 3 * (2 * o + 1), c),
+                   joined(S["Q"] + 3 * (2 * o), c)))
+        out[o * K + c] = F.sub(hi, lo) if o == 0 else F.add(hi, lo)
+    return out
+
+
+def _kernel_schedule(curve, words):
+    """The kernel's schedule, modelled with the port's torch Fq ops: T =
+    2 half >= D; the first level adds input i and i + half (infinity (0,
+    1, 0) at or above D), each level after it entry i and i + h of the
+    level before, every add `_warp_add`; a level of more than
+    `LEVEL_POINTS` points goes to the scratch, a smaller one to shared
+    memory, the last to the output. At D = 1 the wrapper launches nothing
+    and returns the entry. Returns (words, the levels' places)."""
+    spec = SPECS[curve]
+    K = spec.curve.fdims
+    d, nwin = words.shape[:2]
+    if d == 1:
+        return words[0].clone(), []
+    limbs = words_to_limbs(words)                     # (d, nwin, 3 K 16)
+    entry = [list(limbs[i].reshape(nwin, 3 * K, 16).unbind(1))
+             for i in range(d)]
+    zero = torch.zeros_like(entry[0][0])
+    infinity = [zero] * (3 * K)
+    infinity[K] = FQ_CTX.one((nwin,), "cpu")
+    half = 1
+    while 2 * half < d:
+        half *= 2
+    places = []
+
+    def place(h):
+        return "out" if h == 1 else (
+            "scratch" if h > PM.LEVEL_POINTS else "shared")
+    level = [_warp_add(K, entry[i], entry[i + half] if i + half < d
+                       else infinity) for i in range(half)]
+    places.append(place(half))
+    h = half // 2
+    while h >= 1:
+        for i in range(h):              # entry i read, then written
+            level[i] = _warp_add(K, level[i], level[i + h])
+        places.append(place(h))
+        h //= 2
+    out = torch.stack(level[0], 1).reshape(nwin, 3 * K * 16)
+    return limbs_to_words(out), places
+
+
+def test_level_points_match_kernel():
+    """The wrapper's LEVEL_POINTS (it allocates the scratch only above
+    it) is the kernel's kLevelPoints."""
+    src = (pathlib.Path(PM.__file__).parents[1] / "csrc" / "point_sum.cu"
+           ).read_text()
+    assert int(re.search(r"constexpr int kLevelPoints = (\d+);", src
+                         ).group(1)) == PM.LEVEL_POINTS
 
 
 @pytest.mark.parametrize("d", DS)
@@ -158,7 +278,10 @@ def test_point_sum_bits(curve, d):
     got = PM.point_sum(words, curve)
     assert got.dtype == torch.int32
     assert torch.equal(got, _old_limbs_path(curve, words))
-    assert torch.equal(_kernel_walk(curve, words), got)
+    model, places = _kernel_schedule(curve, words)
+    assert torch.equal(model, got)
+    levels = (d - 1).bit_length()                 # log2 T
+    assert places == ["shared"] * (levels - 1) + ["out"] * (d > 1)
     if d == 2:
         cdev = SPECS[curve].curve
         limbs = words_to_limbs(words).unflatten(-1, (3, *cdev.fshape()))
@@ -166,6 +289,22 @@ def test_point_sum_bits(curve, d):
                           for i in range(2)))
         assert torch.equal(got, limbs_to_words(
             torch.cat([c.flatten(1) for c in pair], 1)))
+
+
+@pytest.mark.parametrize("d", [33, 64])
+@pytest.mark.parametrize("curve", ["g1", "g2"])
+def test_kernel_schedule_scratch_levels(curve, d):
+    """Above 32 points a window the first levels (more than LEVEL_POINTS
+    points) go through the scratch: the schedule still equals the plain
+    version bit for bit."""
+    _, words = _case(curve, d, seed=5 * d + len(curve))
+    model, places = _kernel_schedule(curve, words)
+    assert torch.equal(model, PM.point_sum_plain(words, curve))
+    levels = (d - 1).bit_length()
+    scratch = levels - PM.LEVEL_POINTS.bit_length()
+    assert places == (["scratch"] * scratch + ["shared"] * (levels - 1 -
+                                                            scratch)
+                      + ["out"])
 
 
 def test_point_sum_refuses_other_devices():
@@ -185,12 +324,13 @@ def cuda_device():
 @pytest.mark.parametrize("curve", ["g1", "g2"])
 def test_kernel_matches_plain_on_card(cuda_device, curve):
     """One launch a sum at D >= 2 (none at D = 1, whose entry is the
-    sum), equal to the plain version bit for bit at every D, and to the
-    plain version run on the card."""
+    sum), equal to the plain version bit for bit at D = 1..16, and at 33
+    and 64 (the first level through the scratch), and to the plain
+    version run on the card."""
     from infimum_tpu_torch import kernels
 
     k = kernels.KERNELS[f"point_sum_{curve}"]
-    for d in DS + (7, 16):
+    for d in (*range(1, 17), 33, 64):
         _, words = _case(curve, d, seed=11 * d)
         before = k.launches
         got = PM.point_sum(words.to(cuda_device), curve)
