@@ -1,4 +1,5 @@
 # Copied from infimum_tpu/circuits/process.py; the port keeps its own host layers.
+# The constraint system's build is the span `setup.circuit`.
 """Native ProcessMessages circuit: statement-equivalent to the reference's
 ProcessMessages(stateTreeDepth, msgTreeDepth, msgBatchDepth,
 voteOptionTreeDepth) (circuits/process-messages.circom:18-286, instantiated
@@ -23,6 +24,7 @@ from dataclasses import dataclass
 from ..ff.bn254 import FR_MOD
 from ..tree.zeros import NOTHING_UP_MY_SLEEVE
 from ..groth16.r1cs import ConstraintSystem, LC
+from ..utils.profiling import span
 from .gadgets import (
     poseidon_gadget, less_than, less_eq_than, is_equal, mux1,
     num2bits_strict, merkle_inclusion_binary,
@@ -52,7 +54,8 @@ class ProcessCircuit:
         self.batch_size = 5 ** self.msg_batch_depth
         self.num_vote_options = 5 ** self.vote_option_tree_depth
         if self.build:
-            self._build()
+            with span("setup.circuit"):
+                self._build()
 
     def _alloc_grid(self, cs, *dims):
         if len(dims) == 1:

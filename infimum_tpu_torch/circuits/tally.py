@@ -1,4 +1,5 @@
 # Copied from infimum_tpu/circuits/tally.py; the port keeps its own host layers.
+# The constraint system's build is the span `setup.circuit`.
 """Native TallyVotes circuit: statement-equivalent to the reference's
 TallyVotes(stateTreeDepth, intStateTreeDepth, voteOptionTreeDepth)
 (circuits/tally-votes.circom:14-152, instantiated (10,1,2) by
@@ -21,6 +22,7 @@ from dataclasses import dataclass
 
 from ..ff.bn254 import FR_MOD, fr_inv
 from ..groth16.r1cs import ConstraintSystem, LC
+from ..utils.profiling import span
 from .gadgets import (
     poseidon_gadget,
     check_root_binary,
@@ -46,7 +48,8 @@ class TallyCircuit:
         self.num_vote_options = 5 ** self.vote_option_tree_depth
         self.k = self.state_tree_depth - self.int_state_tree_depth
         if self.build:
-            self._build()
+            with span("setup.circuit"):
+                self._build()
 
     def _build(self):
         cs = ConstraintSystem()

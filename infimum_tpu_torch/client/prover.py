@@ -29,7 +29,6 @@ import itertools
 import os
 import random
 import sys
-import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
@@ -45,6 +44,7 @@ from ..maci.keys import Keypair
 from ..maci.replay import MaciReplay
 from ..maci.state import PollOutcome
 from ..tree.full import FullTree
+from ..utils.profiling import proof_scope, span
 from ..witness.process import ProcessWitnessBuilder
 from ..witness.tally import Ballot, TallyWitnessBuilder
 
@@ -113,28 +113,30 @@ class ProverKeys:
         """Ready everything batch 0 would otherwise pay for: on a card, the
         CUDA kernels (built, or loaded from `build/`); the native
         hint-program compile; one throwaway proof per circuit over a zero
-        witness on `device` (query encodings, row layouts, the MSM shapes).
-        Returns {prewarm_s, kernel_load_log}: one entry per CUDA source,
-        {kernel, path: "built" | "cached", s}, empty on the CPU. Raises
-        when the kernels cannot build or launch."""
+        witness on `device` (query encodings, row layouts, the MSM shapes),
+        all in the span `setup.prewarm`. Returns {prewarm_s, the span's
+        seconds; kernel_load_log}: one entry per CUDA source, {kernel,
+        path: "built" | "cached", s}, empty on the CPU. Raises when the
+        kernels cannot build or launch."""
         from .. import kernels
 
-        t0 = time.perf_counter()
-        load_log = []
-        if torch.device(device).type == "cuda":
-            kernels.library()
-            load_log = [{"kernel": src,
-                         "path": "cached" if s is None else "built",
-                         "s": round(s or 0.0, 3)}
-                        for src, s in kernels.BUILD_INFO["sources"].items()]
-        for circuit, pk in ((self.process_circuit, self.process_pk),
-                            (self.tally_circuit, self.tally_pk)):
-            if pk is None:
-                continue
-            circuit.cs._native_prog()   # one-time hint-program compile
-            prove(pk, circuit.cs, [0] * circuit.cs.num_vars,
-                  rng=random.Random(0), device=device)
-        out = {"prewarm_s": round(time.perf_counter() - t0, 3),
+        with span("setup.prewarm") as sp:
+            load_log = []
+            if torch.device(device).type == "cuda":
+                kernels.library()
+                built = kernels.BUILD_INFO["sources"]
+                load_log = [{"kernel": src,
+                             "path": "cached" if s is None else "built",
+                             "s": round(s or 0.0, 3)}
+                            for src, s in built.items()]
+            for circuit, pk in ((self.process_circuit, self.process_pk),
+                                (self.tally_circuit, self.tally_pk)):
+                if pk is None:
+                    continue
+                circuit.cs._native_prog()   # one-time hint-program compile
+                prove(pk, circuit.cs, [0] * circuit.cs.num_vars,
+                      rng=random.Random(0), device=device)
+        out = {"prewarm_s": round(sp.end - sp.start, 3),
                "kernel_load_log": load_log}
         if verbose:
             print(f"[prewarm] {out['prewarm_s']}s, kernels: {load_log}",
@@ -236,14 +238,27 @@ class PollProver:
         return batches, self._outcome(tb)
 
     def _prove_stream(self, jobs, next_witness):
+        """Each batch in turn: its witness, prove, self-verify, serialize,
+        under `proof_scope((kind, index))`, its circuit's kind and its
+        place among that kind's batches; the waits for the witness and the
+        serialization are the spans `poll.witness_wait` and
+        `poll.serialize`."""
         batches = []
+        counts = {"process": 0, "tally": 0}
         for circuit, pk, values, meta in jobs:
-            witness = next_witness()
-            proof = prove(pk, circuit.cs, witness, rng=self.rng,
-                          device=self.device)
-            if not verify(pk.vk, proof, circuit.public_inputs(values)):
-                raise AssertionError("self-verification failed")
-            batches.append((serialize_proof(proof),
+            kind = ("process" if circuit is self.keys.process_circuit
+                    else "tally")
+            with proof_scope((kind, counts[kind])):
+                counts[kind] += 1
+                with span("poll.witness_wait"):
+                    witness = next_witness()
+                proof = prove(pk, circuit.cs, witness, rng=self.rng,
+                              device=self.device)
+                if not verify(pk.vk, proof, circuit.public_inputs(values)):
+                    raise AssertionError("self-verification failed")
+                with span("poll.serialize"):
+                    proof_bytes = serialize_proof(proof)
+            batches.append((proof_bytes,
                             fr_to_hash_bytes(meta["new_commitment"])))
         return batches
 

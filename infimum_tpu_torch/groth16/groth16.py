@@ -28,9 +28,7 @@ same randomness and the same proofs:
 
 from __future__ import annotations
 
-import os
 import random
-import sys
 from dataclasses import dataclass
 
 import torch
@@ -52,7 +50,7 @@ from ..ntt.ntt import (
     PRODUCT, VALUE, _root_of_unity, coset_intt_plain, coset_ntt_plain,
     coset_words, fr_const, ntt_plain, ntt_words, pointwise,
 )
-from ..utils.profiling import Stopwatch
+from ..utils.profiling import Stopwatch, print_trace, record, span, subtree
 from .r1cs import LC, ConstraintSystem
 from .rowval import (
     SparseRows, flatten_rows, ints_to_words, rows_plain, rows_words,
@@ -64,6 +62,8 @@ COSET_GEN = 5  # Fr's standard multiplicative generator (as arkworks)
 # stage timings of the most recent prove() or prove_zkey() call
 # (utils/profiling.Stopwatch as_dict), under the reference's stage names
 LAST_PROVE_TRACE: dict = {}
+# the native verifier's phases, in order (groth16.verify's spans)
+VERIFY_PHASES = ("verify.checks", "verify.product", "verify.final_exp")
 
 
 @dataclass
@@ -328,11 +328,10 @@ def _msm_async(pk: ProvingKey, name: str, points, scalars: torch.Tensor,
                curve: CurveDev = G1_DEV):
     """Dispatch one query's MSM without a host wait; `pk` is a ProvingKey
     or a ZkeyData, `scalars` (n, 8) standard-form words (or (n, 16) limbs)
-    on the query's device. Returns a closure that waits and combines the
-    window sums into the affine result."""
+    on the query's device. Returns (window sums on the device, curve
+    name), for `combine_window_points` once read back."""
     words, sc, mask, lanes = _msm_inputs(pk, name, points, scalars, curve)
-    wins = msm_rows_async(words, sc, lanes, curve.name, mask=mask)
-    return lambda: combine_window_points(wins.cpu(), curve.name)
+    return msm_rows_async(words, sc, lanes, curve.name, mask=mask), curve.name
 
 
 def prove_queries(key, queries, h_scalars, witness: list[int], npub: int,
@@ -346,50 +345,67 @@ def prove_queries(key, queries, h_scalars, witness: list[int], npub: int,
     The witness is converted once, at the start of `h_dispatch`, and its
     words are shared by the rows and the MSMs, which read them as they
     are. Draws r, s from `rng` first, records its stages in
-    LAST_PROVE_TRACE."""
+    LAST_PROVE_TRACE and as spans of the log (utils/profiling): `prove`
+    and under it `prove.<stage>`."""
     global LAST_PROVE_TRACE
-    sw = Stopwatch()
-    rng = rng or random.SystemRandom()
-    r = rng.randrange(P)
-    s = rng.randrange(P)
-    (a_q, b1_q, b2_q, c_q, h_q) = queries
+    with span("prove") as whole:
+        sw = Stopwatch("prove")
+        rng = rng or random.SystemRandom()
+        r = rng.randrange(P)
+        s = rng.randrange(P)
+        (a_q, b1_q, b2_q, c_q, h_q) = queries
 
-    # No sync between the stages, as in the reference: the host waits for
-    # the card only where it reads back (the degree gate, the combines).
-    with sw.stage("h_dispatch"):
-        w_words = ints_to_words(witness, device)
-        h, gate = h_scalars(w_words)
-    with sw.stage("witness_limbs"):
-        # the MSMs read the witness's words as they are (the recode pads
-        # and masks them): the stage keeps its name, and holds the c
-        # query's slice of them
-        w_c = w_words[npub:]
-    with sw.stage("msm_dispatch"):
-        a_fin = _msm_async(key, *a_q, w_words)
-        b2_fin = _msm_async(key, *b2_q, w_words, G2_DEV)
-        b1_fin = _msm_async(key, *b1_q, w_words)
-        c_fin = _msm_async(key, *c_q, w_c)
-        h_fin = _msm_async(key, *h_q, h)
-    with sw.stage("msm_wait"):
-        # degree gate: one row read back, queued behind the MSM dispatches
-        if gate is not None and bool(gate.any()):
-            raise AssertionError("h has unexpected degree")
-        a_acc, b2_acc, b1_acc = a_fin(), b2_fin(), b1_fin()
-        c_acc, h_acc = c_fin(), h_fin()
-    LAST_PROVE_TRACE = sw.as_dict()
-    if os.environ.get("INFIMUM_TRACE"):
-        print(sw.report(), file=sys.stderr, flush=True)
+        # No sync between the stages, as in the reference: the host waits
+        # for the card only where it reads back (the degree gate, the
+        # window sums).
+        with sw.stage("h_dispatch"):
+            with sw.stage("words"):
+                w_words = ints_to_words(witness, device)
+            h, gate = h_scalars(w_words)
+        with sw.stage("witness_limbs"):
+            # the MSMs read the witness's words as they are (the recode
+            # pads and masks them): the stage keeps its name, and holds
+            # the c query's slice of them
+            w_c = w_words[npub:]
+        with sw.stage("msm_dispatch"):
+            sums = [_msm_async(key, *a_q, w_words),
+                    _msm_async(key, *b2_q, w_words, G2_DEV),
+                    _msm_async(key, *b1_q, w_words),
+                    _msm_async(key, *c_q, w_c),
+                    _msm_async(key, *h_q, h)]
+        with sw.stage("msm_wait"):
+            # the first read-back, queued behind every MSM dispatch, waits
+            # for the card: the degree gate's row, else the first sums
+            with sw.stage("card"):
+                if gate is not None:
+                    if bool(gate.any()):
+                        raise AssertionError("h has unexpected degree")
+                    host = []
+                else:
+                    host = [sums[0][0].cpu()]
+            with sw.stage("combine"):
+                host += [wins.cpu() for wins, _ in sums[len(host):]]
+                a_acc, b2_acc, b1_acc, c_acc, h_acc = [
+                    combine_window_points(wins, curve)
+                    for wins, (_, curve) in zip(host, sums)]
+        LAST_PROVE_TRACE = sw.as_dict()
 
-    # A = alpha + sum + r*delta
-    pi_a = g1_add(g1_add(key.alpha_g1, a_acc), g1_mul_fast(key.delta_g1, r))
-    # B = beta + sum + s*delta
-    pi_b = g2_add(g2_add(key.beta_g2, b2_acc), g2_mul_fast(key.delta_g2, s))
-    b_g1 = g1_add(g1_add(key.beta_g1, b1_acc), g1_mul_fast(key.delta_g1, s))
-    # C = L + H + s*A + r*B1 - r*s*delta
-    pi_c = g1_add(c_acc, h_acc)
-    pi_c = g1_add(pi_c, g1_mul_fast(pi_a, s))
-    pi_c = g1_add(pi_c, g1_mul_fast(b_g1, r))
-    pi_c = g1_add(pi_c, g1_neg(g1_mul_fast(key.delta_g1, r * s % P)))
+        with sw.stage("assembly"):
+            # A = alpha + sum + r*delta
+            pi_a = g1_add(g1_add(key.alpha_g1, a_acc),
+                          g1_mul_fast(key.delta_g1, r))
+            # B = beta + sum + s*delta
+            pi_b = g2_add(g2_add(key.beta_g2, b2_acc),
+                          g2_mul_fast(key.delta_g2, s))
+            b_g1 = g1_add(g1_add(key.beta_g1, b1_acc),
+                          g1_mul_fast(key.delta_g1, s))
+            # C = L + H + s*A + r*B1 - r*s*delta
+            pi_c = g1_add(c_acc, h_acc)
+            pi_c = g1_add(pi_c, g1_mul_fast(pi_a, s))
+            pi_c = g1_add(pi_c, g1_mul_fast(b_g1, r))
+            pi_c = g1_add(pi_c, g1_neg(g1_mul_fast(key.delta_g1,
+                                                   r * s % P)))
+    print_trace(subtree(whole))
     return Proof(a=pi_a, b=pi_b, c=pi_c)
 
 
@@ -418,16 +434,30 @@ def prepare_inputs(vk: VerifyingKey, public_inputs: list[int]):
 def verify(vk: VerifyingKey, proof: Proof, public_inputs: list[int]) -> bool:
     """Pairing check e(A,B) = e(alpha,beta) e(IC(x),gamma) e(C,delta) by the
     native C++ verifier, or by verify_py when the native library cannot
-    load."""
+    load. Spans: `verify`, and under it `verify.encode` (the key, proof
+    and public inputs to bytes) and the native call's phases as it timed
+    them, `verify.checks` (every point read and checked on its curve and
+    subgroup, the public inputs' range), `verify.product` (the public
+    inputs' IC combination and the four Miller loops) and
+    `verify.final_exp`; a malformed input has only the phases that ran."""
     from .. import native
 
-    if native.available():
+    with span("verify"):
+        if not native.available():
+            return verify_py(vk, proof, public_inputs)
         from ..io.arkworks import serialize_proof, serialize_vkey
 
-        return native.groth16_verify(
-            serialize_vkey(vk), serialize_proof(proof),
-            [x % P for x in public_inputs])
-    return verify_py(vk, proof, public_inputs)
+        with span("verify.encode") as enc:
+            vk_bytes, proof_bytes = serialize_vkey(vk), serialize_proof(proof)
+            publics = [x % P for x in public_inputs]
+        try:
+            return native.groth16_verify(vk_bytes, proof_bytes, publics)
+        finally:
+            marks = native.verify_last_phases()
+            if marks[0] >= enc.end:     # this call's, not an earlier one's
+                for name, a, b in zip(VERIFY_PHASES, marks, marks[1:]):
+                    if b:
+                        record(name, a, b)
 
 
 def verify_py(vk: VerifyingKey, proof: Proof, public_inputs: list[int]) -> bool:

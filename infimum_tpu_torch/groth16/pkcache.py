@@ -1,5 +1,6 @@
 # Copied from infimum_tpu/groth16/pkcache.py; the reader is groth16/keys.py's
-# load_npz, and setup_cached passes `device` to the port's setup.
+# load_npz, setup_cached passes `device` to the port's setup and is the
+# span `setup.key`.
 """On-disk proving-key cache for the (insecure, single-party) trusted setup.
 
 The reference gets its proving keys from a one-time powersoftau ceremony +
@@ -26,6 +27,7 @@ import numpy as np
 
 from ..ff.bn254 import FR_MOD
 from ..ff.limbs import NLIMBS, batch_to_limbs
+from ..utils.profiling import span
 from .groth16 import ProvingKey, setup
 from .keys import (
     _G1_QUERIES, _G1_SINGLES, _G2_QUERIES, _G2_SINGLES, FORMAT_VERSION,
@@ -139,17 +141,20 @@ def setup_cached(cs: ConstraintSystem, rng: random.Random,
     The five trapdoor values are drawn from `rng` up front (consuming it
     identically on hit and miss, so callers sharing one rng across multiple
     setups stay aligned), hashed into the cache key, and replayed into
-    `setup()` on a miss. Set INFIMUM_PK_CACHE=0 to disable.
+    `setup()` on a miss. Set INFIMUM_PK_CACHE=0 to disable. The whole
+    call, hit or miss, is the span `setup.key`.
     """
-    cache_dir = cache_dir if cache_dir is not None else default_cache_dir()
-    if cache_dir in ("0", ""):
-        return setup(cs, rng, device)
-    draws = [rng.randrange(1, FR_MOD) for _ in range(5)]
-    seed_tag = hashlib.sha256(repr(draws).encode()).hexdigest()[:16]
-    path = os.path.join(
-        cache_dir, f"pk_{label}_{circuit_fingerprint(cs)}_{seed_tag}.npz")
-    if os.path.exists(path):
-        return load_pk(path)
-    pk = setup(cs, _Replay(draws), device)
-    save_pk(pk, path)
-    return pk
+    with span("setup.key"):
+        cache_dir = (cache_dir if cache_dir is not None
+                     else default_cache_dir())
+        if cache_dir in ("0", ""):
+            return setup(cs, rng, device)
+        draws = [rng.randrange(1, FR_MOD) for _ in range(5)]
+        seed_tag = hashlib.sha256(repr(draws).encode()).hexdigest()[:16]
+        path = os.path.join(
+            cache_dir, f"pk_{label}_{circuit_fingerprint(cs)}_{seed_tag}.npz")
+        if os.path.exists(path):
+            return load_pk(path)
+        pk = setup(cs, _Replay(draws), device)
+        save_pk(pk, path)
+        return pk

@@ -1,4 +1,5 @@
-# Copied from infimum_tpu/native/__init__.py; the port keeps its own host layers.
+# Copied from infimum_tpu/native/__init__.py; the port keeps its own host layers,
+# and its own copy of the Groth16 verifier (libinfimum_verify.so, here).
 """ctypes bindings for the native (C++) pallet-core library.
 
 The reference implements its on-chain side natively in Rust (pallet/src/:
@@ -6,7 +7,10 @@ Poseidon hasher, amortized Merkle tree, arkworks deserialization, Groth16
 verifier). This package binds the equivalent C++ library
 (native/libinfimum_native.so): same hashes, same tree semantics, same byte
 contracts, same pairing check — golden-tested against both the Python stack
-and the reference fixtures. Build with `make -C native` (done on demand
+and the reference fixtures. `groth16_verify` calls the port's own copy of
+the verifier (infimum_tpu_torch/native/libinfimum_verify.so), which also
+keeps each call's phase boundaries (`verify_last_phases`). Build with
+`make -C native` and `make -C infimum_tpu_torch/native` (done on demand
 here if a compiler is available); `available()` gates all use.
 """
 
@@ -18,25 +22,35 @@ import subprocess
 
 _NATIVE_DIR = pathlib.Path(__file__).resolve().parents[2] / "native"
 _LIB_PATH = _NATIVE_DIR / "libinfimum_native.so"
+_VERIFY_DIR = pathlib.Path(__file__).resolve().parent
+_VERIFY_PATH = _VERIFY_DIR / "libinfimum_verify.so"
 
 _lib = None
+_vlib = None   # the port's verifier
 _tried = False
 
 
-def _load():
-    global _lib, _tried
-    if _lib is not None or _tried:
-        return _lib
-    _tried = True
-    if not _LIB_PATH.exists():
+def _open(directory: pathlib.Path, path: pathlib.Path):
+    if not path.exists():
         try:
-            subprocess.run(["make", "-C", str(_NATIVE_DIR)], check=True,
+            subprocess.run(["make", "-C", str(directory)], check=True,
                            capture_output=True, timeout=300)
         except Exception:
             return None
     try:
-        lib = ctypes.CDLL(str(_LIB_PATH))
+        return ctypes.CDLL(str(path))
     except OSError:
+        return None
+
+
+def _load():
+    global _lib, _vlib, _tried
+    if _lib is not None or _tried:
+        return _lib
+    _tried = True
+    lib = _open(_NATIVE_DIR, _LIB_PATH)
+    vlib = _open(_VERIFY_DIR, _VERIFY_PATH)
+    if lib is None or vlib is None:
         return None
     lib.inf_imt_new.restype = ctypes.c_void_p
     lib.inf_imt_new.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
@@ -58,7 +72,9 @@ def _load():
     lib.inf_hintprog_run.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int,
         ctypes.c_char_p]
-    _lib = lib
+    vlib.inf_verify_last_phases.argtypes = [ctypes.POINTER(ctypes.c_int64)]
+    vlib.inf_verify_last_phases.restype = None
+    _lib, _vlib = lib, vlib
     return _lib
 
 
@@ -272,10 +288,10 @@ def groth16_verify(vk_bytes: dict, proof_bytes: dict,
     """Native pairing verification over pallet-shaped byte containers
     (the {alpha_g1, beta_g2, gamma_g2, delta_g2, gamma_abc_g1} /
     {pi_a, pi_b, pi_c} dicts of io/arkworks.py)."""
-    lib = _load()
+    _load()
     ic = b"".join(bytes(p) for p in vk_bytes["gamma_abc_g1"])
     pub = b"".join(_fr_bytes(x) for x in publics)
-    rc = lib.inf_groth16_verify(
+    rc = _vlib.inf_groth16_verify(
         bytes(vk_bytes["alpha_g1"]), bytes(vk_bytes["beta_g2"]),
         bytes(vk_bytes["gamma_g2"]), bytes(vk_bytes["delta_g2"]),
         ic, len(vk_bytes["gamma_abc_g1"]),
@@ -284,3 +300,14 @@ def groth16_verify(vk_bytes: dict, proof_bytes: dict,
     if rc < 0:
         raise ValueError(f"malformed verify input rc={rc}")
     return rc == 1
+
+
+def verify_last_phases() -> list[float]:
+    """The phase boundaries of this thread's last `groth16_verify`, in
+    seconds of CLOCK_MONOTONIC (time.perf_counter's clock on Linux): its
+    start, the end of the checks, of the Miller product and of the final
+    exponentiation; 0.0 for a boundary the call did not reach."""
+    out = (ctypes.c_int64 * 4)()
+    _load()
+    _vlib.inf_verify_last_phases(out)
+    return [ns * 1e-9 for ns in out]

@@ -5,7 +5,8 @@ With `native.available` patched to false, the port's `verify` takes
 verify_py, which accepts a good proof and rejects a tampered one and a
 wrong public input, exactly as the reference's verify_py does on the same
 key and proof; prepare_inputs and the multi-pairing agree with the
-reference's."""
+reference's. With it loaded, the native verify is the port's own
+library's and gives the same verdicts."""
 
 import random
 
@@ -38,6 +39,25 @@ def test_verify_falls_back_to_verify_py(case, proof, monkeypatch):
     p = (port.Proof(a=g1_add(good.a, G1_GEN), b=good.b, c=good.c)
          if case == "tampered" else good)
     monkeypatch.setattr(native, "available", lambda: False)
+    got = port.verify(pk.vk, p, publics)
+    assert got == ref.verify_py(pk.vk, p, publics)
+    assert got == (case == "good")
+
+
+@pytest.mark.parametrize("case", ["good", "tampered", "wrong_input"])
+def test_native_verify_is_the_ports_own_library(case, proof):
+    """The native verify runs the port's own copy of the verifier
+    (infimum_tpu_torch/native), not the reference's library, and gives
+    the reference's verdict."""
+    if not native.available():
+        pytest.skip("the native library does not load (no compiler?)")
+    pk, good = proof
+    publics = [22, 10] if case == "wrong_input" else [21, 10]
+    p = (port.Proof(a=g1_add(good.a, G1_GEN), b=good.b, c=good.c)
+         if case == "tampered" else good)
+    assert native._vlib._name == str(native._VERIFY_PATH)
+    assert native._VERIFY_PATH.parent.name == "native"
+    assert native._VERIFY_PATH.parents[1].name == "infimum_tpu_torch"
     got = port.verify(pk.vk, p, publics)
     assert got == ref.verify_py(pk.vk, p, publics)
     assert got == (case == "good")

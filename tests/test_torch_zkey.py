@@ -133,6 +133,25 @@ def test_prove_zkey_records_stage_trace():
     assert all(v >= 0 for v in port_g16.LAST_PROVE_TRACE.values())
 
 
+def test_prove_zkey_records_the_prove_spans():
+    """prove_zkey records prove()'s spans, nested alike; with no degree
+    gate its card wait is the first window sums' read-back."""
+    import time
+
+    from infimum_tpu_torch.utils import profiling
+
+    from test_torch_profiling import PROVE_SPANS, _tree
+
+    cs, inputs, _ = _circuit("toy")
+    zk = port_zkey.generate_zkey(cs, random.Random(SEEDS["toy"]),
+                                 device="cpu")
+    t0 = time.perf_counter()
+    port_zkey.prove_zkey(zk, cs.compute_witness(inputs), random.Random(9),
+                         device="cpu")
+    found = profiling.spans(t0, time.perf_counter())
+    assert _tree(found) == PROVE_SPANS
+
+
 @pytest.fixture(scope="module")
 def toy_proofs():
     """The toy circuit's proof from both packages' prove_zkey, seed 9."""
