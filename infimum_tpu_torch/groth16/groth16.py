@@ -438,8 +438,8 @@ def verify(vk: VerifyingKey, proof: Proof, public_inputs: list[int]) -> bool:
     and public inputs to bytes) and the native call's phases as it timed
     them, `verify.checks` (every point read and checked on its curve and
     subgroup, the public inputs' range), `verify.product` (the public
-    inputs' IC combination and the four Miller loops) and
-    `verify.final_exp`; a malformed input has only the phases that ran."""
+    inputs' IC combination and one multi-Miller loop over the four
+    pairs) and `verify.final_exp`; a malformed input has only the phases that ran."""
     from .. import native
 
     with span("verify"):

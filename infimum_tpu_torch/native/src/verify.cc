@@ -16,8 +16,8 @@ namespace {
 // The phase boundaries of this thread's last inf_groth16_verify, in
 // CLOCK_MONOTONIC nanoseconds: its start, then the end of the checks (every
 // point read and checked, the public inputs' range), of the Miller product
-// (the IC combination and the four Miller loops) and of the final
-// exponentiation; 0 for a boundary the call did not reach.
+// (the IC combination and the multi-Miller loop over the four pairs) and of
+// the final exponentiation; 0 for a boundary the call did not reach.
 thread_local int64_t verify_phases[4];
 
 int64_t monotonic_ns() {
@@ -84,6 +84,21 @@ int inf_groth16_verify(const uint8_t* vk_alpha, const uint8_t* vk_beta,
 
 void inf_verify_last_phases(int64_t out[4]) {
   std::memcpy(out, verify_phases, sizeof(verify_phases));
+}
+
+// For tests: e(P, Q) final-exponentiated as inf_groth16_verify's check does
+// it (pairing.h's power of the pairing), written as the 12 coefficients of
+// curve/pairing.py's polynomial basis, 32-byte big-endian standard form,
+// lowest power first. g1: 64 bytes, g2: 128 bytes, both read and checked as
+// the verifier reads them; returns 0, or -1 on a malformed point.
+int inf_pairing_value(const uint8_t* g1, const uint8_t* g2, uint8_t* out) {
+  G1 p;
+  G2 q;
+  if (!deserialize_g1(g1, &p) || !deserialize_g2(g2, &q)) return -1;
+  U256 c[12];
+  fq12_to_poly(final_exponentiate(multi_miller_loop({{p, q}})), c);
+  for (int i = 0; i < 12; ++i) to_be32(c[i], out + 32 * i);
+  return 0;
 }
 
 }  // extern "C"
