@@ -50,7 +50,9 @@ from ..ntt.ntt import (
     PRODUCT, VALUE, _root_of_unity, coset_intt_plain, coset_ntt_plain,
     coset_words, fr_const, ntt_plain, ntt_words, pointwise,
 )
-from ..utils.profiling import Stopwatch, print_trace, record, span, subtree
+from ..utils.profiling import (
+    Stopwatch, count, print_trace, record, span, subtree,
+)
 from .r1cs import LC, ConstraintSystem
 from .rowval import (
     SparseRows, flatten_rows, ints_to_words, rows_plain, rows_words,
@@ -346,7 +348,9 @@ def prove_queries(key, queries, h_scalars, witness: list[int], npub: int,
     words are shared by the rows and the MSMs, which read them as they
     are. Draws r, s from `rng` first, records its stages in
     LAST_PROVE_TRACE and as spans of the log (utils/profiling): `prove`
-    and under it `prove.<stage>`."""
+    and under it `prove.<stage>`; `prove.msm_dispatch` counts each
+    query's rows under its name (`h_scalars` may count the H stage's work
+    on `prove.h_dispatch`)."""
     global LAST_PROVE_TRACE
     with span("prove") as whole:
         sw = Stopwatch("prove")
@@ -367,7 +371,8 @@ def prove_queries(key, queries, h_scalars, witness: list[int], npub: int,
             # pads and masks them): the stage keeps its name, and holds
             # the c query's slice of them
             w_c = w_words[npub:]
-        with sw.stage("msm_dispatch"):
+        with sw.stage("msm_dispatch",
+                      **{name: len(points) for name, points in queries}):
             sums = [_msm_async(key, *a_q, w_words),
                     _msm_async(key, *b2_q, w_words, G2_DEV),
                     _msm_async(key, *b1_q, w_words),
@@ -415,6 +420,9 @@ def prove(pk: ProvingKey, cs: ConstraintSystem, witness: list[int],
 
     def h_scalars(w_words):
         h = h_words(cs, w_words, device)
+        # the H stage's work: its domain and the row table's terms over a,
+        # b and c (the public rows' included)
+        count(domain=m, terms=sparse_rows(cs, device).nnz)
         return h[:m - 1], h[m - 1]
 
     return prove_queries(

@@ -6,16 +6,20 @@
   - The span log: every timed interval of the program, a `Span`, in one
     bounded in-process ring (`RING` spans, the oldest dropped first), on
     the `time.perf_counter` clock, unrounded. A span has a name, a start,
-    an end, the span it opened under (its parent) and the proof id of the
-    enclosing `proof_scope`. `span(name)` times a block; `record(name,
-    start, end)` logs an interval timed elsewhere (the native verifier's
-    phases, whose CLOCK_MONOTONIC is perf_counter's clock on Linux);
+    an end, the span it opened under (its parent), the proof id of the
+    enclosing `proof_scope` and, where the code gives them, integer
+    counters of the work it carried (`span(name, **counts)`, or `count`
+    inside the block: `prove.h_dispatch` its domain and row terms,
+    `prove.msm_dispatch` each query's rows). `span(name)` times a block;
+    `record(name, start, end)` logs an interval timed elsewhere (the
+    native verifier's phases, whose CLOCK_MONOTONIC is perf_counter's
+    clock on Linux);
     `spans(start, end)` returns the spans inside an interval, or None
     where the ring has dropped one that may have lain there. Always on:
     a span costs two clock reads and an append. Under INFIMUM_TRACE each
     proof's spans are printed to standard error, one line each (a
     `proof_scope`'s all together as it closes: the wait for its witness,
-    prove, verify, serialization).
+    prove, verify, serialization), its counters after its time.
   - Stopwatch: nestable named stages over the log, each stage a span
     under the caller's; `as_dict` gives the top-level stages' seconds,
     rounded to 1 ms (prove()'s LAST_PROVE_TRACE).
@@ -56,6 +60,7 @@ class Span:
     parent: int | None    # the id of the span it opened under
     depth: int            # 0 at the top
     proof: object         # the enclosing proof_scope's id, or None
+    counts: dict | None = None   # {counter: int}; None where it has none
     _token: object = field(default=None, repr=False, compare=False)
 
     def __enter__(self) -> "Span":
@@ -68,6 +73,11 @@ class Span:
         _open.reset(self._token)
         self._token = None
         _append(self)
+
+    def count(self, **counts: int) -> None:
+        """Add integer counters of the work the span carries."""
+        self.counts = {**(self.counts or {}),
+                       **{k: int(v) for k, v in counts.items()}}
 
 
 _LOG: deque = deque(maxlen=RING)
@@ -96,10 +106,21 @@ def _new(name: str, start: float) -> Span:
                 0 if parent is None else parent.depth + 1, _proof.get())
 
 
-def span(name: str) -> Span:
-    """`with span(name) as sp:` times the block as a span under the open
-    one; `sp.end` is set when the block exits."""
-    return _new(name, 0.0)
+def span(name: str, **counts: int) -> Span:
+    """`with span(name, **counts) as sp:` times the block as a span under
+    the open one, with the given counters; `sp.end` is set when the block
+    exits."""
+    sp = _new(name, 0.0)
+    if counts:
+        sp.count(**counts)
+    return sp
+
+
+def count(**counts: int) -> None:
+    """Add integer counters to the innermost open span, if one is open."""
+    sp = _open.get()
+    if sp is not None:
+        sp.count(**counts)
 
 
 def record(name: str, start: float, end: float) -> Span:
@@ -160,10 +181,12 @@ def subtree(root: Span) -> list[Span]:
 
 def format_spans(tree: list[Span]) -> str:
     """One line a span: indented by its depth under the shallowest, its
-    name and milliseconds."""
+    name and milliseconds, then its counters as `name=value`."""
     base = min((s.depth for s in tree), default=0)
-    return "\n".join(f"{'  ' * (s.depth - base)}{s.name}: "
-                     f"{(s.end - s.start) * 1e3:.3f} ms" for s in tree)
+    return "\n".join(
+        f"{'  ' * (s.depth - base)}{s.name}: {(s.end - s.start) * 1e3:.3f} ms"
+        + "".join(f" {k}={v}" for k, v in (s.counts or {}).items())
+        for s in tree)
 
 
 @dataclass
@@ -183,12 +206,12 @@ class Stopwatch:
     _path: list[str] = field(default_factory=list)
 
     @contextlib.contextmanager
-    def stage(self, name: str):
+    def stage(self, name: str, **counts: int):
         depth = len(self._path)
         self._path.append(name)
         full = ".".join(([self.name] if self.name else []) + self._path)
         try:
-            with span(full) as sp:
+            with span(full, **counts) as sp:
                 yield sp
         finally:
             self._path.pop()
@@ -267,7 +290,7 @@ def _merge_spans(path: str, marks: tuple[float, float], cuda: bool,
             "tid": SPAN_TID, "ts": at(s.start),
             "dur": at(s.end) - at(s.start),
             "args": {"proof": repr(s.proof), "id": s.id,
-                     "parent": s.parent}})
+                     "parent": s.parent, **(s.counts or {})}})
     with open(path, "w") as f:
         json.dump(doc, f)
 

@@ -14,6 +14,7 @@ events' clock, and without its clock markers."""
 
 import json
 import random
+import re
 import time
 from collections import deque
 
@@ -179,6 +180,40 @@ def test_ring_bound_and_overflow(monkeypatch):
         "s2", "s3", "s4", "s5"]
 
 
+def test_span_counters_are_kept_printed_and_returned():
+    with port.span("outer", rows=3) as outer:
+        port.count(terms=5, rows=4)
+        with port.span("inner") as inner:
+            pass
+    assert outer.counts == {"rows": 4, "terms": 5}
+    assert inner.counts is None     # count() reached the innermost open span
+    found = port.spans(outer.start, outer.end)
+    assert [(s.name, s.counts) for s in found] == [
+        ("inner", None), ("outer", {"rows": 4, "terms": 5})]
+    line = port.format_spans([outer])
+    assert line.startswith("outer: ") and line.endswith(" ms rows=4 terms=5")
+
+
+def test_span_without_counters_is_unchanged():
+    with port.span("plain") as sp:
+        pass
+    port.count(rows=1)       # no span open: nothing to count on
+    assert sp.counts is None
+    assert port.format_spans([sp]) == (
+        f"plain: {(sp.end - sp.start) * 1e3:.3f} ms")
+    rec = port.record("timed", sp.start, sp.end)
+    assert rec.counts is None
+
+
+def test_stopwatch_stage_carries_counters():
+    with port.span("outer") as outer:
+        sw = port.Stopwatch("run")
+        with sw.stage("msm", a=7, h=8):
+            pass
+    (stage,) = [s for s in port.subtree(outer) if s.name == "run.msm"]
+    assert stage.counts == {"a": 7, "h": 8}
+
+
 def _toy_prove():
     cs, w = _toy_witness()
     pk = g16.setup(cs, random.Random(42), device="cpu")
@@ -208,6 +243,20 @@ def test_prove_records_exactly_the_prover_spans(toy_prove):
     assert all(a.end <= b.start for a, b in zip(top, top[1:]))
 
 
+def test_prove_counts_the_h_stage_and_query_rows(toy_prove):
+    pk, cs = toy_prove["pk"], toy_prove["cs"]
+    by_name = {s.name: s for s in toy_prove["spans"]}
+    assert by_name["prove.h_dispatch"].counts == {
+        "domain": g16._domain_size(cs),
+        "terms": g16.sparse_rows(cs, "cpu").nnz}
+    assert by_name["prove.msm_dispatch"].counts == {
+        "a": len(pk.a_query), "b1": len(pk.b_g1_query),
+        "b2": len(pk.b_g2_query), "l": len(pk.l_query),
+        "h": len(pk.h_query)}
+    assert all(s.counts is None for s in toy_prove["spans"]
+               if s.name not in ("prove.h_dispatch", "prove.msm_dispatch"))
+
+
 def test_last_prove_trace_keeps_keys_order_and_rounding(toy_prove):
     trace, found = toy_prove["trace"], toy_prove["spans"]
     assert list(trace) == STAGES
@@ -231,8 +280,16 @@ def test_prove_records_the_reference_stages(monkeypatch, capsys):
     assert [line.split(":")[0].strip() for line in err] == names
     assert [(len(line) - len(line.lstrip())) // 2 for line in err] == [
         n.count(".") for n in names]
-    assert all(line.endswith(" ms") and float(line.split(": ")[1][:-3]) >= 0
-               for line in err)
+    # each line: its milliseconds, then its counters (h_dispatch and
+    # msm_dispatch carry them) as name=value
+    counted = {}
+    for line in err:
+        ms, sep, counters = line.split(": ")[1].partition(" ms")
+        assert sep and float(ms) >= 0
+        assert all(re.fullmatch(r"\w+=\d+", c) for c in counters.split())
+        counted[line.split(":")[0].strip()] = counters.split()
+    assert [n for n, c in counted.items() if c] == [
+        "prove.h_dispatch", "prove.msm_dispatch"]
 
 
 def test_native_verify_phases_nest_in_order(toy_prove):
@@ -435,6 +492,16 @@ def test_trace_writes_the_spans_on_the_trace_clock(tmp_path, monkeypatch):
     for op in ops:
         assert inner["ts"] - slack <= op["ts"]
         assert op["ts"] + op["dur"] <= inner["ts"] + inner["dur"] + slack
+
+
+def test_trace_writes_span_counters(tmp_path, monkeypatch):
+    monkeypatch.setenv("INFIMUM_PROFILE_DIR", str(tmp_path))
+    with port.trace("counts"):
+        with port.span("counted", rows=12):
+            torch.ones(8).cumsum(0)
+    events = json.loads((tmp_path / "counts.json").read_text())["traceEvents"]
+    (mine,) = [e for e in events if e.get("cat") == "program_span"]
+    assert mine["name"] == "counted" and mine["args"]["rows"] == 12
 
 
 def test_trace_takes_its_markers_out(tmp_path, monkeypatch):
