@@ -16,7 +16,10 @@ same randomness and the same proofs:
     through the CUDA MSM kernels on a card, each recode reading the
     witness's (or h's) standard-form words as they are; the proof
     assembled on the host (`prove_queries`, which groth16/zkey.py's
-    prove_zkey shares).
+    prove_zkey shares): the window sums' combine and the assembly in the
+    port's native library's Jacobian arithmetic (`native.msm_combine`,
+    `native.groth16_assemble`), or, without the library, in affine Python
+    ints (`combine_window_points_plain`, `assemble_plain`).
     Its four stages (`h_dispatch`, `witness_limbs`, `msm_dispatch`,
     `msm_wait`) are recorded in LAST_PROVE_TRACE, with no sync between
     them. `h_rows_plain` / `ab_minus_c_plain` are the H stage's plain
@@ -33,6 +36,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import native
 from ..curve.bn254_host import (
     G1_GEN, G2_GEN, g1_add, g1_mul_fast, g1_neg, g2_add, g2_mul_fast,
 )
@@ -44,7 +48,7 @@ from ..ff.fp import (
 )
 from ..msm.fixed_base import fixed_base_mul_batch
 from ..msm.msm import (
-    combine_window_points, encode_rows, msm_lanes, msm_rows_async,
+    combine_window_points, encode_rows, msm_lanes, msm_rows_words,
 )
 from ..ntt.ntt import (
     PRODUCT, VALUE, _root_of_unity, coset_intt_plain, coset_ntt_plain,
@@ -330,10 +334,49 @@ def _msm_async(pk: ProvingKey, name: str, points, scalars: torch.Tensor,
                curve: CurveDev = G1_DEV):
     """Dispatch one query's MSM without a host wait; `pk` is a ProvingKey
     or a ZkeyData, `scalars` (n, 8) standard-form words (or (n, 16) limbs)
-    on the query's device. Returns (window sums on the device, curve
-    name), for `combine_window_points` once read back."""
+    on the query's device. Returns ((nwin, PW) window-sum words on the
+    device, curve name), for `combine_window_points` once read back."""
     words, sc, mask, lanes = _msm_inputs(pk, name, points, scalars, curve)
-    return msm_rows_async(words, sc, lanes, curve.name, mask=mask), curve.name
+    return msm_rows_words(words, sc, lanes, curve.name, mask=mask), curve.name
+
+
+def _tail_key(key) -> bytes:
+    """alpha_g1, beta_g1, delta_g1, beta_g2 and delta_g2 of a ProvingKey or
+    a ZkeyData as `native.groth16_assemble` reads them, encoded once per
+    key."""
+    ent = key.__dict__.get("_torch_tail_key")
+    if ent is None:
+        ent = b"".join(native.point_bytes(p, c) for p, c in (
+            (key.alpha_g1, "g1"), (key.beta_g1, "g1"), (key.delta_g1, "g1"),
+            (key.beta_g2, "g2"), (key.delta_g2, "g2")))
+        key.__dict__["_torch_tail_key"] = ent
+    return ent
+
+
+def assemble_plain(key, a_acc, b2_acc, b1_acc, c_acc, h_acc, r: int,
+                   s: int):
+    """(A, B, C) from the key, the five MSMs' points and r, s, in affine
+    Python ints: `native.groth16_assemble`'s formulas."""
+    # A = alpha + sum + r*delta
+    pi_a = g1_add(g1_add(key.alpha_g1, a_acc), g1_mul_fast(key.delta_g1, r))
+    # B = beta + sum + s*delta
+    pi_b = g2_add(g2_add(key.beta_g2, b2_acc), g2_mul_fast(key.delta_g2, s))
+    b_g1 = g1_add(g1_add(key.beta_g1, b1_acc), g1_mul_fast(key.delta_g1, s))
+    # C = L + H + s*A + r*B1 - r*s*delta
+    pi_c = g1_add(c_acc, h_acc)
+    pi_c = g1_add(pi_c, g1_mul_fast(pi_a, s))
+    pi_c = g1_add(pi_c, g1_mul_fast(b_g1, r))
+    pi_c = g1_add(pi_c, g1_neg(g1_mul_fast(key.delta_g1, r * s % P)))
+    return pi_a, pi_b, pi_c
+
+
+def assemble(key, a_acc, b2_acc, b1_acc, c_acc, h_acc, r: int, s: int):
+    """`assemble_plain`'s (A, B, C), in the native library's Jacobian
+    arithmetic where it loads."""
+    if not native.available():
+        return assemble_plain(key, a_acc, b2_acc, b1_acc, c_acc, h_acc, r, s)
+    return native.groth16_assemble(_tail_key(key),
+                                   (a_acc, b1_acc, c_acc, h_acc, b2_acc), r, s)
 
 
 def prove_queries(key, queries, h_scalars, witness: list[int], npub: int,
@@ -350,7 +393,8 @@ def prove_queries(key, queries, h_scalars, witness: list[int], npub: int,
     LAST_PROVE_TRACE and as spans of the log (utils/profiling): `prove`
     and under it `prove.<stage>`; `prove.msm_dispatch` counts each
     query's rows under its name (`h_scalars` may count the H stage's work
-    on `prove.h_dispatch`)."""
+    on `prove.h_dispatch`); `prove.msm_wait.combine` and `prove.assembly`
+    count `native` 1 where they ran in the native library, else 0."""
     global LAST_PROVE_TRACE
     with span("prove") as whole:
         sw = Stopwatch("prove")
@@ -388,28 +432,16 @@ def prove_queries(key, queries, h_scalars, witness: list[int], npub: int,
                     host = []
                 else:
                     host = [sums[0][0].cpu()]
-            with sw.stage("combine"):
+            with sw.stage("combine", native=native.available()):
                 host += [wins.cpu() for wins, _ in sums[len(host):]]
                 a_acc, b2_acc, b1_acc, c_acc, h_acc = [
                     combine_window_points(wins, curve)
                     for wins, (_, curve) in zip(host, sums)]
         LAST_PROVE_TRACE = sw.as_dict()
 
-        with sw.stage("assembly"):
-            # A = alpha + sum + r*delta
-            pi_a = g1_add(g1_add(key.alpha_g1, a_acc),
-                          g1_mul_fast(key.delta_g1, r))
-            # B = beta + sum + s*delta
-            pi_b = g2_add(g2_add(key.beta_g2, b2_acc),
-                          g2_mul_fast(key.delta_g2, s))
-            b_g1 = g1_add(g1_add(key.beta_g1, b1_acc),
-                          g1_mul_fast(key.delta_g1, s))
-            # C = L + H + s*A + r*B1 - r*s*delta
-            pi_c = g1_add(c_acc, h_acc)
-            pi_c = g1_add(pi_c, g1_mul_fast(pi_a, s))
-            pi_c = g1_add(pi_c, g1_mul_fast(b_g1, r))
-            pi_c = g1_add(pi_c, g1_neg(g1_mul_fast(key.delta_g1,
-                                                   r * s % P)))
+        with sw.stage("assembly", native=native.available()):
+            pi_a, pi_b, pi_c = assemble(key, a_acc, b2_acc, b1_acc, c_acc,
+                                        h_acc, r, s)
     print_trace(subtree(whole))
     return Proof(a=pi_a, b=pi_b, c=pi_c)
 
@@ -448,8 +480,6 @@ def verify(vk: VerifyingKey, proof: Proof, public_inputs: list[int]) -> bool:
     subgroup, the public inputs' range), `verify.product` (the public
     inputs' IC combination and one multi-Miller loop over the four
     pairs) and `verify.final_exp`; a malformed input has only the phases that ran."""
-    from .. import native
-
     with span("verify"):
         if not native.available():
             return verify_py(vk, proof, public_inputs)

@@ -9,9 +9,12 @@ verifier). This package binds the equivalent C++ library
 contracts, same pairing check — golden-tested against both the Python stack
 and the reference fixtures. `groth16_verify` calls the port's own copy of
 the verifier (infimum_tpu_torch/native/libinfimum_verify.so), which also
-keeps each call's phase boundaries (`verify_last_phases`). Build with
+keeps each call's phase boundaries (`verify_last_phases`) and carries the
+Groth16 prover's host tail (`msm_combine`, `groth16_assemble`). Build with
 `make -C native` and `make -C infimum_tpu_torch/native` (done on demand
-here if a compiler is available); `available()` gates all use.
+here if a compiler is available; the port's library is rebuilt once where
+the one on disk lacks a symbol this module binds); `available()` gates all
+use.
 """
 
 from __future__ import annotations
@@ -25,18 +28,41 @@ _LIB_PATH = _NATIVE_DIR / "libinfimum_native.so"
 _VERIFY_DIR = pathlib.Path(__file__).resolve().parent
 _VERIFY_PATH = _VERIFY_DIR / "libinfimum_verify.so"
 
+_VERIFY_SYMBOLS = ("inf_groth16_verify", "inf_verify_last_phases",
+                   "inf_msm_combine_g1", "inf_msm_combine_g2",
+                   "inf_groth16_assemble")
+
 _lib = None
-_vlib = None   # the port's verifier
+_vlib = None   # the port's verifier and prover tail
 _tried = False
 
 
-def _open(directory: pathlib.Path, path: pathlib.Path):
-    if not path.exists():
-        try:
-            subprocess.run(["make", "-C", str(directory)], check=True,
-                           capture_output=True, timeout=300)
-        except Exception:
-            return None
+def _make(directory: pathlib.Path, *flags: str) -> bool:
+    try:
+        subprocess.run(["make", "-C", str(directory), *flags], check=True,
+                       capture_output=True, timeout=300)
+    except (OSError, subprocess.SubprocessError):
+        return False
+    return True
+
+
+def _lacks(path: pathlib.Path, symbols) -> bool:
+    """Whether the library at `path` lacks one of `symbols`, read from its
+    string table before it is loaded: a library once loaded stays in the
+    process, so a rebuilt one could not replace it."""
+    data = path.read_bytes()
+    return any(b"\0" + s.encode() + b"\0" not in data for s in symbols)
+
+
+def _open(directory: pathlib.Path, path: pathlib.Path, symbols=()):
+    """The library at `path`, built by `make -C directory` where it is
+    missing, and rebuilt once (`make -B`) where it lacks one of `symbols`;
+    None where it cannot be built or loaded."""
+    if not path.exists() and not _make(directory):
+        return None
+    if _lacks(path, symbols) and (not _make(directory, "-B")
+                                  or _lacks(path, symbols)):
+        return None
     try:
         return ctypes.CDLL(str(path))
     except OSError:
@@ -49,7 +75,7 @@ def _load():
         return _lib
     _tried = True
     lib = _open(_NATIVE_DIR, _LIB_PATH)
-    vlib = _open(_VERIFY_DIR, _VERIFY_PATH)
+    vlib = _open(_VERIFY_DIR, _VERIFY_PATH, _VERIFY_SYMBOLS)
     if lib is None or vlib is None:
         return None
     lib.inf_imt_new.restype = ctypes.c_void_p
@@ -74,6 +100,13 @@ def _load():
         ctypes.c_char_p]
     vlib.inf_verify_last_phases.argtypes = [ctypes.POINTER(ctypes.c_int64)]
     vlib.inf_verify_last_phases.restype = None
+    for name in ("inf_msm_combine_g1", "inf_msm_combine_g2"):
+        fn = getattr(vlib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_char_p]
+        fn.restype = ctypes.c_int
+    vlib.inf_groth16_assemble.argtypes = [ctypes.c_char_p] * 5
+    vlib.inf_groth16_assemble.restype = ctypes.c_int
     _lib, _vlib = lib, vlib
     return _lib
 
@@ -311,3 +344,72 @@ def verify_last_phases() -> list[float]:
     _load()
     _vlib.inf_verify_last_phases(out)
     return [ns * 1e-9 for ns in out]
+
+
+# -- the Groth16 prover's host tail (src/prove_tail.cc) ---------------------
+#
+# A point crosses to the library in standard form, 32-byte little-endian
+# coordinates: G1 (x, y), 64 bytes; G2 ((x0, x1), (y0, y1)), 128 bytes, c0
+# first; all zero bytes for infinity (None).
+
+POINT_BYTES = {"g1": 64, "g2": 128}
+
+
+def point_bytes(p, curve: str) -> bytes:
+    """A host affine point (curve/bn254_host.py's tuples, None for
+    infinity) as the library reads it."""
+    if p is None:
+        return bytes(POINT_BYTES[curve])
+    coords = p if curve == "g1" else (*p[0], *p[1])
+    return b"".join(int(c).to_bytes(32, "little") for c in coords)
+
+
+def point_from_bytes(b: bytes, curve: str):
+    """The inverse of `point_bytes`."""
+    if not any(b):
+        return None
+    c = [int.from_bytes(b[i:i + 32], "little") for i in range(0, len(b), 32)]
+    return (c[0], c[1]) if curve == "g1" else ((c[0], c[1]), (c[2], c[3]))
+
+
+def msm_combine(words, curve: str, c_bits: int):
+    """One MSM's window sums -> its host affine point (None for infinity):
+    Horner over the windows in Jacobian coordinates, one inversion.
+    `words`: the (nwin, PW) int32 words of the windows' homogeneous
+    projective (X, Y, Z), Montgomery form, least significant window first
+    (msm/msm.py `msm_rows_words`)."""
+    import numpy as np
+
+    w = np.ascontiguousarray(words, dtype=np.int32)
+    pw = 3 * POINT_BYTES[curve] // 8    # 32-bit words of (X, Y, Z)
+    if w.ndim != 2 or w.shape[1] != pw:
+        raise ValueError(f"want (nwin, {pw}) words, got {w.shape}")
+    _load()
+    out = ctypes.create_string_buffer(POINT_BYTES[curve])
+    fn = (_vlib.inf_msm_combine_g1 if curve == "g1"
+          else _vlib.inf_msm_combine_g2)
+    rc = fn(w.ctypes.data_as(ctypes.c_void_p), w.shape[0], c_bits, out)
+    if rc != 0:
+        raise ValueError(f"native msm combine failed rc={rc}")
+    return point_from_bytes(out.raw, curve)
+
+
+def groth16_assemble(key: bytes, sums, r: int, s: int):
+    """(A, B, C) of a Groth16 proof, as host affine points: A = alpha + a +
+    r delta, B = beta_2 + b2 + s delta_2, C = l + h + s A + r (beta_1 + b1 +
+    s delta) - r s delta. `key`: alpha_g1, beta_g1, delta_g1, beta_g2,
+    delta_g2 as `point_bytes`, joined; `sums`: the MSMs' points a, b1, l, h
+    (G1) and b2 (G2); r, s below |Fr|."""
+    _load()
+    sb = b"".join(point_bytes(p, c) for p, c in
+                  zip(sums, ("g1", "g1", "g1", "g1", "g2")))
+    out = ctypes.create_string_buffer(256)
+    rc = _vlib.inf_groth16_assemble(bytes(key), sb,
+                                    int(r).to_bytes(32, "little"),
+                                    int(s).to_bytes(32, "little"), out)
+    if rc != 0:
+        raise ValueError(f"native groth16 assemble failed rc={rc}")
+    raw = out.raw
+    return (point_from_bytes(raw[:64], "g1"),
+            point_from_bytes(raw[64:192], "g2"),
+            point_from_bytes(raw[192:], "g1"))

@@ -19,8 +19,8 @@ version):
 
 The reference reduces window sums of its XLA Pippenger (c = 8), which the
 port does not carry; the two are compared on the final point only. The
-host Horner combine (`msm/msm.py` `combine_window_points`) runs on the
-ranks that hold the sum.
+host Horner combine (`msm/msm.py` `combine_window_points`, in the native
+library where it loads) runs on the ranks that hold the sum.
 """
 
 from __future__ import annotations

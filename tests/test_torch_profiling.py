@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from infimum_tpu.utils import profiling as ref
+from infimum_tpu_torch import native
 from infimum_tpu_torch.groth16 import groth16 as g16
 from infimum_tpu_torch.utils import profiling as port
 
@@ -253,8 +254,13 @@ def test_prove_counts_the_h_stage_and_query_rows(toy_prove):
         "a": len(pk.a_query), "b1": len(pk.b_g1_query),
         "b2": len(pk.b_g2_query), "l": len(pk.l_query),
         "h": len(pk.h_query)}
+    # the host tail's spans count whether they ran in the native library
+    tail = {"native": int(native.available())}
+    assert by_name["prove.msm_wait.combine"].counts == tail
+    assert by_name["prove.assembly"].counts == tail
     assert all(s.counts is None for s in toy_prove["spans"]
-               if s.name not in ("prove.h_dispatch", "prove.msm_dispatch"))
+               if s.name not in ("prove.h_dispatch", "prove.msm_dispatch",
+                                 "prove.msm_wait.combine", "prove.assembly"))
 
 
 def test_last_prove_trace_keeps_keys_order_and_rounding(toy_prove):
@@ -280,8 +286,8 @@ def test_prove_records_the_reference_stages(monkeypatch, capsys):
     assert [line.split(":")[0].strip() for line in err] == names
     assert [(len(line) - len(line.lstrip())) // 2 for line in err] == [
         n.count(".") for n in names]
-    # each line: its milliseconds, then its counters (h_dispatch and
-    # msm_dispatch carry them) as name=value
+    # each line: its milliseconds, then its counters (h_dispatch,
+    # msm_dispatch, the combine and the assembly carry them) as name=value
     counted = {}
     for line in err:
         ms, sep, counters = line.split(": ")[1].partition(" ms")
@@ -289,7 +295,8 @@ def test_prove_records_the_reference_stages(monkeypatch, capsys):
         assert all(re.fullmatch(r"\w+=\d+", c) for c in counters.split())
         counted[line.split(":")[0].strip()] = counters.split()
     assert [n for n, c in counted.items() if c] == [
-        "prove.h_dispatch", "prove.msm_dispatch"]
+        "prove.h_dispatch", "prove.msm_dispatch", "prove.msm_wait.combine",
+        "prove.assembly"]
 
 
 def test_native_verify_phases_nest_in_order(toy_prove):
