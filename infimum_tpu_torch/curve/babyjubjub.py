@@ -9,6 +9,7 @@ the prime-order subgroup (order l below, cofactor 8).
 
 from __future__ import annotations
 
+from .. import native
 from ..ff.bn254 import FR_MOD as P
 
 A = 168700
@@ -24,20 +25,9 @@ SUB_ORDER = 27360303589799094027808007181571593860768139721585672592002156609484
 
 
 def add(p, q):
-    """Twisted Edwards addition (complete)."""
-    nat = _native()
-    if nat:
-        return nat.bjj_add(p, q)
-    x1, y1 = p
-    x2, y2 = q
-    beta = x1 * y2 % P
-    gamma = y1 * x2 % P
-    delta = (y1 - A * x1) * (x2 + y2) % P
-    tau = beta * gamma % P
-    dtau = D * tau % P
-    x3 = (beta + gamma) * pow(1 + dtau, -1, P) % P
-    y3 = (delta + A * beta - gamma) * pow(1 - dtau, -1, P) % P
-    return (x3, y3)
+    """Twisted Edwards addition (complete), in native C++
+    (native/src/bjj.cc)."""
+    return native.bjj_add(p, q)
 
 
 def double(p):
@@ -53,10 +43,9 @@ IDENTITY = (0, 1)
 
 def _ext_add(p, q):
     """Unified extended-coordinate addition (X, Y, T, Z), Hisil et al.
-    "add-2008-hwcd": no inversions — the affine `add` costs two modular
-    inverses per step, which dominated host EdDSA/ECDH (hot path of message
-    publication and replay). Complete here because d is a non-square and a
-    a square mod P (checked in tests against the affine ladder)."""
+    "add-2008-hwcd": no inversions — an affine addition costs two modular
+    inverses per step. Complete here because d is a non-square and a a
+    square mod P."""
     x1, y1, t1, z1 = p
     x2, y2, t2, z2 = q
     a = x1 * x2 % P
@@ -70,35 +59,17 @@ def _ext_add(p, q):
     return (e * f % P, g * h % P, e * h % P, f * g % P)
 
 
-def _native():
-    """Native C++ twin (native/src/bjj.cc): ~2.3 ms -> ~60 us per
-    full-width scalar mult; the host hot loop of EdDSA signing/ECDH in
-    message publication and replay. INFIMUM_NATIVE_BJJ=0 forces Python."""
-    global _NATIVE
-    if _NATIVE is None:
-        import os
-
-        if os.environ.get("INFIMUM_NATIVE_BJJ", "1") != "1":
-            _NATIVE = False
-        else:
-            from .. import native
-
-            _NATIVE = native if native.available() else False
-    return _NATIVE
-
-
-_NATIVE = None
-
-
 def mul(p, n: int):
-    """Scalar multiplication via extended coordinates: one inversion total
-    (the final normalization) instead of two per point addition."""
+    """Scalar multiplication: native C++ (native/src/bjj.cc, ~60 us at
+    full width, the host hot loop of EdDSA signing and ECDH in message
+    publication and replay) for scalars below 2^256, which it reads in 32
+    bytes; above, via extended coordinates in Python, one inversion in
+    all (the final normalization)."""
     n = int(n)
     if n <= 0:
         return IDENTITY if n == 0 else mul(neg(p), -n)
-    nat = _native()
-    if nat and n < (1 << 256):
-        return nat.bjj_mul(p, n)
+    if n < (1 << 256):
+        return native.bjj_mul(p, n)
     x, y = p
     acc = (0, 1, 0, 1)                       # identity
     base = (x, y, x * y % P, 1)

@@ -19,8 +19,7 @@ from ..ff.fp import (
 )
 from ..ff.fq2 import FQ2_CTX
 from .bn254_host import (
-    B2, G1_GEN, G2_GEN, _fq2_mul, g1_add, g1_double, g1_mul, g2_add,
-    g2_double, g2_mul,
+    B2, G1_GEN, G2_GEN, _fq2_mul, g1_add, g1_mul, g2_add, g2_mul,
 )
 
 
@@ -32,7 +31,7 @@ class CurveDev:
         self.fdims = fdims
         self._b3 = b3               # 3b as host ints: (c,) for G1, (c0, c1) for G2
         self._b3_dev: dict = {}
-        self.host_add, self.host_double, self.host_mul = host_ops
+        self.host_add, self.host_mul = host_ops
         self.gen = gen
         self.name = name
 
@@ -173,8 +172,8 @@ class CurveDev:
         return [tuple(vals[i:i + 2]) for i in range(0, len(vals), 2)]
 
 
-G1_DEV = CurveDev(FQ_CTX, 1, (9,), (g1_add, g1_double, g1_mul), G1_GEN,
+G1_DEV = CurveDev(FQ_CTX, 1, (9,), (g1_add, g1_mul), G1_GEN,
                   "g1")                                  # b = 3, so 3b = 9
 G2_DEV = CurveDev(FQ2_CTX, 2, tuple(3 * c % FQ_MOD for c in B2),
-                  (g2_add, g2_double, g2_mul), G2_GEN, "g2")
+                  (g2_add, g2_mul), G2_GEN, "g2")
 CURVES = {"g1": G1_DEV, "g2": G2_DEV}

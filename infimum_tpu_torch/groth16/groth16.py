@@ -18,15 +18,13 @@ same randomness and the same proofs:
     assembled on the host (`prove_queries`, which groth16/zkey.py's
     prove_zkey shares): the window sums' combine and the assembly in the
     port's native library's Jacobian arithmetic (`native.msm_combine`,
-    `native.groth16_assemble`), or, without the library, in affine Python
-    ints (`combine_window_points_plain`, `assemble_plain`).
+    `native.groth16_assemble`).
     Its four stages (`h_dispatch`, `witness_limbs`, `msm_dispatch`,
     `msm_wait`) are recorded in LAST_PROVE_TRACE, with no sync between
     them. `h_rows_plain` / `ab_minus_c_plain` are the H stage's plain
     version in limbs.
   - verify(): the native C++ pairing (`native`), which reads the keys and
-    proofs through `io.arkworks`; without the native library, verify_py's
-    pure-Python pairing (curve/pairing.py).
+    proofs through `io.arkworks`.
 """
 
 from __future__ import annotations
@@ -37,9 +35,7 @@ from dataclasses import dataclass
 import torch
 
 from .. import native
-from ..curve.bn254_host import (
-    G1_GEN, G2_GEN, g1_add, g1_mul_fast, g1_neg, g2_add, g2_mul_fast,
-)
+from ..curve.bn254_host import G1_GEN, G2_GEN, g1_mul_fast, g2_mul_fast
 from ..curve.proj import G1_DEV, G2_DEV, CurveDev
 from ..ff.bn254 import FR_MOD, batch_inv_mod, fr_inv
 from ..ff.fp import (
@@ -353,28 +349,9 @@ def _tail_key(key) -> bytes:
     return ent
 
 
-def assemble_plain(key, a_acc, b2_acc, b1_acc, c_acc, h_acc, r: int,
-                   s: int):
-    """(A, B, C) from the key, the five MSMs' points and r, s, in affine
-    Python ints: `native.groth16_assemble`'s formulas."""
-    # A = alpha + sum + r*delta
-    pi_a = g1_add(g1_add(key.alpha_g1, a_acc), g1_mul_fast(key.delta_g1, r))
-    # B = beta + sum + s*delta
-    pi_b = g2_add(g2_add(key.beta_g2, b2_acc), g2_mul_fast(key.delta_g2, s))
-    b_g1 = g1_add(g1_add(key.beta_g1, b1_acc), g1_mul_fast(key.delta_g1, s))
-    # C = L + H + s*A + r*B1 - r*s*delta
-    pi_c = g1_add(c_acc, h_acc)
-    pi_c = g1_add(pi_c, g1_mul_fast(pi_a, s))
-    pi_c = g1_add(pi_c, g1_mul_fast(b_g1, r))
-    pi_c = g1_add(pi_c, g1_neg(g1_mul_fast(key.delta_g1, r * s % P)))
-    return pi_a, pi_b, pi_c
-
-
 def assemble(key, a_acc, b2_acc, b1_acc, c_acc, h_acc, r: int, s: int):
-    """`assemble_plain`'s (A, B, C), in the native library's Jacobian
-    arithmetic where it loads."""
-    if not native.available():
-        return assemble_plain(key, a_acc, b2_acc, b1_acc, c_acc, h_acc, r, s)
+    """(A, B, C) from the key, the five MSMs' points and r, s, in the
+    native library's Jacobian arithmetic (`native.groth16_assemble`)."""
     return native.groth16_assemble(_tail_key(key),
                                    (a_acc, b1_acc, c_acc, h_acc, b2_acc), r, s)
 
@@ -393,8 +370,7 @@ def prove_queries(key, queries, h_scalars, witness: list[int], npub: int,
     LAST_PROVE_TRACE and as spans of the log (utils/profiling): `prove`
     and under it `prove.<stage>`; `prove.msm_dispatch` counts each
     query's rows under its name (`h_scalars` may count the H stage's work
-    on `prove.h_dispatch`); `prove.msm_wait.combine` and `prove.assembly`
-    count `native` 1 where they ran in the native library, else 0."""
+    on `prove.h_dispatch`)."""
     global LAST_PROVE_TRACE
     with span("prove") as whole:
         sw = Stopwatch("prove")
@@ -432,14 +408,14 @@ def prove_queries(key, queries, h_scalars, witness: list[int], npub: int,
                     host = []
                 else:
                     host = [sums[0][0].cpu()]
-            with sw.stage("combine", native=native.available()):
+            with sw.stage("combine"):
                 host += [wins.cpu() for wins, _ in sums[len(host):]]
                 a_acc, b2_acc, b1_acc, c_acc, h_acc = [
                     combine_window_points(wins, curve)
                     for wins, (_, curve) in zip(host, sums)]
         LAST_PROVE_TRACE = sw.as_dict()
 
-        with sw.stage("assembly", native=native.available()):
+        with sw.stage("assembly"):
             pi_a, pi_b, pi_c = assemble(key, a_acc, b2_acc, b1_acc, c_acc,
                                         h_acc, r, s)
     print_trace(subtree(whole))
@@ -463,26 +439,16 @@ def prove(pk: ProvingKey, cs: ConstraintSystem, witness: list[int],
         h_scalars, witness, cs.num_public + 1, rng, device)
 
 
-def prepare_inputs(vk: VerifyingKey, public_inputs: list[int]):
-    """IC-combined public input point (ark-groth16 prepare_inputs)."""
-    acc = vk.ic[0]
-    for point, x in zip(vk.ic[1:], public_inputs):
-        acc = g1_add(acc, g1_mul_fast(point, x))
-    return acc
-
-
 def verify(vk: VerifyingKey, proof: Proof, public_inputs: list[int]) -> bool:
     """Pairing check e(A,B) = e(alpha,beta) e(IC(x),gamma) e(C,delta) by the
-    native C++ verifier, or by verify_py when the native library cannot
-    load. Spans: `verify`, and under it `verify.encode` (the key, proof
-    and public inputs to bytes) and the native call's phases as it timed
-    them, `verify.checks` (every point read and checked on its curve and
-    subgroup, the public inputs' range), `verify.product` (the public
-    inputs' IC combination and one multi-Miller loop over the four
-    pairs) and `verify.final_exp`; a malformed input has only the phases that ran."""
+    native C++ verifier. Spans: `verify`, and under it `verify.encode` (the
+    key, proof and public inputs to bytes) and the native call's phases as
+    it timed them, `verify.checks` (every point read and checked on its
+    curve and subgroup, the public inputs' range), `verify.product` (the
+    public inputs' IC combination and one multi-Miller loop over the four
+    pairs) and `verify.final_exp`; a malformed input has only the phases
+    that ran."""
     with span("verify"):
-        if not native.available():
-            return verify_py(vk, proof, public_inputs)
         from ..io.arkworks import serialize_proof, serialize_vkey
 
         with span("verify.encode") as enc:
@@ -497,17 +463,3 @@ def verify(vk: VerifyingKey, proof: Proof, public_inputs: list[int]) -> bool:
                     if b:
                         record(name, a, b)
 
-
-def verify_py(vk: VerifyingKey, proof: Proof, public_inputs: list[int]) -> bool:
-    """The same check on the pure-Python pairing (curve/pairing.py): about
-    a second a proof."""
-    from ..curve.pairing import multi_pairing_is_one
-
-    ic = prepare_inputs(vk, public_inputs)
-    # e(A, B) e(-alpha, beta) e(-IC, gamma) e(-C, delta) == 1
-    return multi_pairing_is_one([
-        (proof.a, proof.b),
-        (g1_neg(vk.alpha_g1), vk.beta_g2),
-        (g1_neg(ic), vk.gamma_g2),
-        (g1_neg(proof.c), vk.delta_g2),
-    ])

@@ -203,37 +203,33 @@ class ConstraintSystem:
                        "div0": 4, "digit5": 5}
 
     def _native_prog(self):
-        """Compiled native hint program, or None (native unavailable, an
-        untagged hint, or INFIMUM_NATIVE_WITNESS=0). Cached per hint count."""
-        import os
-
+        """Compiled native hint program, or None where a hint carries no
+        op tag the native program knows. Cached per hint count."""
         cached = self.__dict__.get("_native_prog_cache")
         if cached is not None and cached[0] == len(self.hints):
             return cached[1]
         prog = None
-        if (os.environ.get("INFIMUM_NATIVE_WITNESS", "1") == "1"
-                and all(h[3] is not None and h[3][0] in self._NATIVE_OPCODES
-                        for h in self.hints)):
+        if all(h[3] is not None and h[3][0] in self._NATIVE_OPCODES
+               for h in self.hints):
             from .. import native
 
-            if native.available():
-                ops, tidx, coeffs = [], [], []
+            ops, tidx, coeffs = [], [], []
 
-                def flat(lc):
-                    off = len(tidx)
-                    for i, c in lc.terms.items():
-                        tidx.append(i)
-                        coeffs.append(int(c % P).to_bytes(32, "big"))
-                    return off, len(lc.terms)
+            def flat(lc):
+                off = len(tidx)
+                for i, c in lc.terms.items():
+                    tidx.append(i)
+                    coeffs.append(int(c % P).to_bytes(32, "big"))
+                return off, len(lc.terms)
 
-                for out_idx, _fn, in_lcs, (name, param) in self.hints:
-                    a_off, a_len = flat(in_lcs[0])
-                    b_off, b_len = flat(in_lcs[1]) if len(in_lcs) > 1 \
-                        else (0, 0)
-                    ops += [self._NATIVE_OPCODES[name], param, out_idx,
-                            a_off, a_len, b_off, b_len]
-                prog = native.NativeHintProg(
-                    ops, tidx, b"".join(coeffs), self.num_vars)
+            for out_idx, _fn, in_lcs, (name, param) in self.hints:
+                a_off, a_len = flat(in_lcs[0])
+                b_off, b_len = flat(in_lcs[1]) if len(in_lcs) > 1 \
+                    else (0, 0)
+                ops += [self._NATIVE_OPCODES[name], param, out_idx,
+                        a_off, a_len, b_off, b_len]
+            prog = native.NativeHintProg(
+                ops, tidx, b"".join(coeffs), self.num_vars)
         self._native_prog_cache = (len(self.hints), prog)
         return prog
 
@@ -241,8 +237,7 @@ class ConstraintSystem:
         """inputs: {var_index: value} for publics and primary witness vars.
         Hints run in registration order (builders register in topo order).
         Runs the native evaluator (native/src/hintprog.cc) when every hint
-        carries an op tag; the Python interpreter below is the fallback
-        and ground truth (tested equal)."""
+        carries an op tag it knows, else the Python interpreter below."""
         native_prog = self._native_prog()
         if native_prog is not None:
             return native_prog.run({i: v % P for i, v in inputs.items()})

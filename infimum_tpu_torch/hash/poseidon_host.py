@@ -1,5 +1,6 @@
 # Copied from infimum_tpu/hash/poseidon_host.py; the port keeps its own host layers.
-"""Host (python-int) circom-compatible Poseidon over BN254 Fr.
+"""Host circom-compatible Poseidon over BN254 Fr: native C++, and its
+python-int twin (`poseidon_py`, `poseidon_perm_py`).
 
 Behavioral contract (reference: pallet/src/hash/poseidon.rs:162-208):
   - width t = n_inputs + 1, domain tag 0 prepended,
@@ -13,29 +14,14 @@ device Poseidon (poseidon.py).
 
 from __future__ import annotations
 
-import os
-
+from .. import native
 from ..ff.bn254 import FR_MOD
 from .grain import poseidon_params, FULL_ROUNDS, PARTIAL_ROUNDS, MAX_WIDTH
 
-# The C++ twin (native/src/poseidon.cc, golden-tested against this module
-# and the circomlibjs KATs) is ~7-11x faster per hash; every host hot loop
-# (pallet inserts, event replay, message encrypt, witness inputs) funnels
-# through here, so dispatch to it when the library is available.
-# INFIMUM_NATIVE_POSEIDON=0 forces the pure-Python path.
-_NATIVE = None
-
-
-def _native():
-    global _NATIVE
-    if _NATIVE is None:
-        if os.environ.get("INFIMUM_NATIVE_POSEIDON", "1") != "1":
-            _NATIVE = False
-        else:
-            from .. import native
-
-            _NATIVE = native if native.available() else False
-    return _NATIVE
+# `poseidon` and `poseidon_perm` run the C++ twin (native/src/poseidon.cc,
+# golden-tested against the Python below and the circomlibjs KATs), ~7-11x
+# faster per hash: every host hot loop (pallet inserts, event replay,
+# message encrypt, witness inputs) funnels through here.
 
 
 def poseidon_perm_py(state: list[int]) -> list[int]:
@@ -74,11 +60,8 @@ def poseidon_perm_py(state: list[int]) -> list[int]:
 
 
 def poseidon_perm(state: list[int]) -> list[int]:
-    """Full Poseidon permutation; native C++ when available."""
-    nat = _native()
-    if nat:
-        return nat.poseidon_perm([x % FR_MOD for x in state])
-    return poseidon_perm_py(state)
+    """Full Poseidon permutation, in native C++."""
+    return native.poseidon_perm([x % FR_MOD for x in state])
 
 
 def poseidon_py(inputs: list[int]) -> int:
@@ -92,10 +75,7 @@ def poseidon(inputs: list[int]) -> int:
     """circom Poseidon hash: domain tag 0, output element 0."""
     if not 1 <= len(inputs) <= MAX_WIDTH - 1:
         raise ValueError(f"poseidon arity {len(inputs)} unsupported")
-    nat = _native()
-    if nat:
-        return nat.poseidon([x % FR_MOD for x in inputs])
-    return poseidon_perm_py([0] + list(inputs))[0]
+    return native.poseidon([x % FR_MOD for x in inputs])
 
 
 def poseidon2(a: int, b: int) -> int:

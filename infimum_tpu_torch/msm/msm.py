@@ -25,8 +25,7 @@ all windows batched into each launch:
 
 The window sums combine on the host: Horner, c doublings per window, in
 the port's native library's Jacobian arithmetic (`native.msm_combine`, one
-inversion an MSM), or, without it, `combine_window_points_plain`'s affine
-Python ints.
+inversion an MSM).
 Inside the pipeline a field element is 8 32-bit words (int32 tensors,
 the bit pattern of uint32); at the public functions it is 16 16-bit limbs,
 Montgomery R = 2^256 in both, so the values are the same integers.
@@ -571,32 +570,12 @@ def decode_windows(wins, curve: str = "g1"):
 def combine_window_points(wins, curve: str = "g1"):
     """(nwin, PR) window-sum limbs or their (nwin, PW) words (least
     significant first) -> one host affine point / None: Horner in the
-    native library's Jacobian arithmetic where it loads, else
-    `combine_window_points_plain`."""
-    if not native.available():
-        return combine_window_points_plain(wins, curve)
+    native library's Jacobian arithmetic."""
     spec = SPECS[curve]
     w = torch.as_tensor(wins).cpu()
     words = w if w.dtype == torch.int32 else limbs_to_words(w)
     return native.msm_combine(words.reshape(-1, spec.PW).numpy(), curve,
                               spec.c_bits)
-
-
-def combine_window_points_plain(wins, curve: str = "g1"):
-    """`combine_window_points` via Horner with the host curve's affine ops
-    (an inversion a step) on python ints."""
-    spec = SPECS[curve]
-    host = spec.curve
-    wins = torch.as_tensor(wins)
-    if wins.dtype == torch.int32:
-        wins = words_to_limbs(wins)
-    total = None
-    for pt in reversed(decode_windows(wins, curve)):
-        if total is not None:
-            for _ in range(spec.c_bits):
-                total = host.host_double(total)
-        total = host.host_add(total, pt)
-    return total
 
 
 def encode_rows(points, lanes: int, curve: str = "g1", device="cpu"):

@@ -10,11 +10,12 @@ contracts, same pairing check — golden-tested against both the Python stack
 and the reference fixtures. `groth16_verify` calls the port's own copy of
 the verifier (infimum_tpu_torch/native/libinfimum_verify.so), which also
 keeps each call's phase boundaries (`verify_last_phases`) and carries the
-Groth16 prover's host tail (`msm_combine`, `groth16_assemble`). Build with
-`make -C native` and `make -C infimum_tpu_torch/native` (done on demand
-here if a compiler is available; the port's library is rebuilt once where
-the one on disk lacks a symbol this module binds); `available()` gates all
-use.
+Groth16 prover's host tail (`msm_combine`, `groth16_assemble`). The port
+requires both libraries: they load at first use, built by `make -C native`
+and `make -C infimum_tpu_torch/native` where they are missing (the port's
+library is rebuilt once where the one on disk lacks a symbol this module
+binds), and every binding raises RuntimeError where one cannot be built or
+loaded.
 """
 
 from __future__ import annotations
@@ -34,16 +35,20 @@ _VERIFY_SYMBOLS = ("inf_groth16_verify", "inf_verify_last_phases",
 
 _lib = None
 _vlib = None   # the port's verifier and prover tail
-_tried = False
 
 
-def _make(directory: pathlib.Path, *flags: str) -> bool:
+def _make(directory: pathlib.Path, path: pathlib.Path, *flags: str) -> None:
+    """`make -C directory flags`, which builds the library at `path`;
+    RuntimeError, naming `path` and the tail of make's stderr, where it
+    fails."""
     try:
         subprocess.run(["make", "-C", str(directory), *flags], check=True,
                        capture_output=True, timeout=300)
-    except (OSError, subprocess.SubprocessError):
-        return False
-    return True
+    except subprocess.CalledProcessError as e:
+        err = e.stderr.decode(errors="replace")[-2000:]
+        raise RuntimeError(f"cannot build {path}: {err}") from e
+    except (OSError, subprocess.SubprocessError) as e:
+        raise RuntimeError(f"cannot build {path}: {e}") from e
 
 
 def _lacks(path: pathlib.Path, symbols) -> bool:
@@ -57,27 +62,27 @@ def _lacks(path: pathlib.Path, symbols) -> bool:
 def _open(directory: pathlib.Path, path: pathlib.Path, symbols=()):
     """The library at `path`, built by `make -C directory` where it is
     missing, and rebuilt once (`make -B`) where it lacks one of `symbols`;
-    None where it cannot be built or loaded."""
-    if not path.exists() and not _make(directory):
-        return None
-    if _lacks(path, symbols) and (not _make(directory, "-B")
-                                  or _lacks(path, symbols)):
-        return None
+    RuntimeError, naming `path`, where it cannot be built or loaded."""
+    if not path.exists():
+        _make(directory, path)
+    if _lacks(path, symbols):
+        _make(directory, path, "-B")
+        if _lacks(path, symbols):
+            raise RuntimeError(f"{path} lacks one of {symbols} once rebuilt")
     try:
         return ctypes.CDLL(str(path))
-    except OSError:
-        return None
+    except OSError as e:
+        raise RuntimeError(f"cannot load {path}: {e}") from e
 
 
 def _load():
-    global _lib, _vlib, _tried
-    if _lib is not None or _tried:
+    """The repo-root library, loaded (with the port's, `_vlib`) at first
+    use; `_open`'s RuntimeError where either cannot be."""
+    global _lib, _vlib
+    if _lib is not None:
         return _lib
-    _tried = True
     lib = _open(_NATIVE_DIR, _LIB_PATH)
     vlib = _open(_VERIFY_DIR, _VERIFY_PATH, _VERIFY_SYMBOLS)
-    if lib is None or vlib is None:
-        return None
     lib.inf_imt_new.restype = ctypes.c_void_p
     lib.inf_imt_new.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.inf_imt_free.argtypes = [ctypes.c_void_p]
@@ -112,7 +117,12 @@ def _load():
 
 
 def available() -> bool:
-    return _load() is not None
+    """Whether both libraries load."""
+    try:
+        _load()
+    except RuntimeError:
+        return False
+    return True
 
 
 def _fr_bytes(x: int) -> bytes:

@@ -6,7 +6,7 @@
 // Fq12 is a tower on bn254.h's Fq2 = Fq[u]/(u^2 + 1):
 //   Fq6  = Fq2[v]/(v^3 - xi), xi = 9 + u;
 //   Fq12 = Fq6[w]/(w^2 - v).
-// It is the field of curve/pairing.py, whose polynomial basis is
+// It is the field of infimum_tpu/curve/pairing.py, whose polynomial basis is
 // Fq[w]/(w^12 - 18 w^6 + 82): w^6 = xi, so u = w^6 - 9 (`fq12_to_poly`).
 // G2 lies on the D-type twist y^2 = x^3 + 3/xi, mapped into E(Fq12) by
 // (x, y) -> (x w^2, y w^3).
@@ -50,8 +50,8 @@ Fq12 multi_miller_loop(const std::vector<std::pair<G1, G2>>& pairs);
 // is one exactly where f^((q^12 - 1)/r) is.
 Fq12 final_exponentiate(const Fq12& f);
 
-// The 12 standard-form coefficients of a on curve/pairing.py's polynomial
-// basis, lowest power of w first.
+// The 12 standard-form coefficients of a on infimum_tpu/curve/pairing.py's
+// polynomial basis, lowest power of w first.
 void fq12_to_poly(const Fq12& a, U256 out[12]);
 
 struct VerifyingKey {

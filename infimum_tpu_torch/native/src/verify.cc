@@ -88,9 +88,10 @@ void inf_verify_last_phases(int64_t out[4]) {
 
 // For tests: e(P, Q) final-exponentiated as inf_groth16_verify's check does
 // it (pairing.h's power of the pairing), written as the 12 coefficients of
-// curve/pairing.py's polynomial basis, 32-byte big-endian standard form,
-// lowest power first. g1: 64 bytes, g2: 128 bytes, both read and checked as
-// the verifier reads them; returns 0, or -1 on a malformed point.
+// infimum_tpu/curve/pairing.py's polynomial basis, 32-byte big-endian
+// standard form, lowest power first. g1: 64 bytes, g2: 128 bytes, both read
+// and checked as the verifier reads them; returns 0, or -1 on a malformed
+// point.
 int inf_pairing_value(const uint8_t* g1, const uint8_t* g2, uint8_t* out) {
   G1 p;
   G2 q;

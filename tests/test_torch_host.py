@@ -6,7 +6,10 @@ witnesses, the byte-level Poseidon API, point compression). Each case runs
 one piece of work through the copy and through the original on the same
 inputs, from numpy seeds, and the results must be equal: hashes,
 ciphertexts, roots, bytes, error classes in their order, constraint counts
-and witnesses at small dims."""
+and witnesses at small dims. The copies run Poseidon, BLAKE-512, the
+BabyJubJub multiply and the witness's hints in the native library; the
+originals run their Python twins (their native switches off), so that the
+library is not held against itself."""
 
 import importlib
 import random
@@ -168,7 +171,7 @@ CASES = {f.__name__: f for f in (poseidon_widths, cipher, trees, arkworks,
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_copy_matches_original(case):
+def test_copy_matches_original(case, monkeypatch):
     def loader(package):
         def m(name):
             mod = importlib.import_module(f"{package}.{name}")
@@ -177,5 +180,9 @@ def test_copy_matches_original(case):
         return m
 
     got = CASES[case](loader("infimum_tpu_torch"))
+    for name in ("hash.poseidon_host", "utils.blake512", "curve.babyjubjub"):
+        monkeypatch.setattr(importlib.import_module(f"infimum_tpu.{name}"),
+                            "_NATIVE", False)
+    monkeypatch.setenv("INFIMUM_NATIVE_WITNESS", "0")
     want = CASES[case](loader("infimum_tpu"))
     assert got == want

@@ -405,20 +405,12 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("combine", ["native", "plain"])
 @pytest.mark.parametrize("curve", ["g1", "g2"])
-def test_kernels_match_plain_on_card(cuda_device, curve, combine,
-                                     monkeypatch):
+def test_kernels_match_plain_on_card(cuda_device, curve):
     """Each kernel against its plain version on the same card tensors, at
     a shape with several chunks and several blocks per window; the window
-    sums of both combine to the host MSM, through the native library's
-    Horner or, without it, the affine Python one."""
-    from infimum_tpu_torch import native
-
-    if combine == "plain":
-        monkeypatch.setattr(native, "available", lambda: False)
-    elif not native.available():
-        pytest.skip("the native library does not load")
+    sums of both combine to the host MSM through the native library's
+    Horner."""
     spec = M.SPECS[curve]
     n, lanes = 4096, 128
     pts, scs = _points(curve, 41, n), _ints(42, n)

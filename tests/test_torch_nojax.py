@@ -4,15 +4,14 @@ The machine with the GPU has no JAX, and the port keeps its own copies of
 the host layers it needs, so neither `jax` nor `infimum_tpu` may be
 imported by it. A subprocess installs a meta-path finder that refuses both,
 imports the package, its end-to-end and scale-poll clients, user roles,
-pallet, key cache, stage trace, pairing, its Poseidon and tree modules, the
+pallet, key cache, stage trace, its Poseidon and tree modules, the
 zkey path, the byte-level Poseidon API, point compression, the witness
 workers and the sharded layer (`parallel/{distributed,msm,ntt,tree}`, run
 in a one-rank gloo group: an MSM, a tree and an NTT round trip), builds
 the toy circuit with the port's own r1cs, sets it up through the key cache
-(a miss, then a hit), proves it on the CPU, verifies it natively and by
-the pure-Python pairing, then generates its zkey, writes and reads it,
-proves from it and verifies, and checks that no `jax*` or `infimum_tpu*`
-module was loaded."""
+(a miss, then a hit), proves it on the CPU, verifies it natively, then
+generates its zkey, writes and reads it, proves from it and verifies, and
+checks that no `jax*` or `infimum_tpu*` module was loaded."""
 
 import os
 import subprocess
@@ -42,7 +41,6 @@ SCRIPT = textwrap.dedent("""
     import infimum_tpu_torch.client.scale
     import infimum_tpu_torch.client.user
     import infimum_tpu_torch.circuits.pointbits_gadget
-    import infimum_tpu_torch.curve.pairing
     import infimum_tpu_torch.hash.bytes
     import infimum_tpu_torch.hash.poseidon
     import infimum_tpu_torch.io.snarkjs_json
@@ -79,7 +77,6 @@ SCRIPT = textwrap.dedent("""
     assert type(again) is g16.Proof
     assert g16.verify(pk.vk, again, [21, 10])
     assert not g16.verify(pk.vk, again, [22, 10])
-    assert g16.verify_py(pk.vk, again, [21, 10])
     zk = snarkjs.read_zkey(snarkjs.write_zkey(
         zkey.generate_zkey(cs, random.Random(44), device="cpu")))
     zproof = zkey.prove_zkey(zk, w, random.Random(45), device="cpu")

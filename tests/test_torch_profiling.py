@@ -254,13 +254,8 @@ def test_prove_counts_the_h_stage_and_query_rows(toy_prove):
         "a": len(pk.a_query), "b1": len(pk.b_g1_query),
         "b2": len(pk.b_g2_query), "l": len(pk.l_query),
         "h": len(pk.h_query)}
-    # the host tail's spans count whether they ran in the native library
-    tail = {"native": int(native.available())}
-    assert by_name["prove.msm_wait.combine"].counts == tail
-    assert by_name["prove.assembly"].counts == tail
     assert all(s.counts is None for s in toy_prove["spans"]
-               if s.name not in ("prove.h_dispatch", "prove.msm_dispatch",
-                                 "prove.msm_wait.combine", "prove.assembly"))
+               if s.name not in ("prove.h_dispatch", "prove.msm_dispatch"))
 
 
 def test_last_prove_trace_keeps_keys_order_and_rounding(toy_prove):
@@ -286,8 +281,8 @@ def test_prove_records_the_reference_stages(monkeypatch, capsys):
     assert [line.split(":")[0].strip() for line in err] == names
     assert [(len(line) - len(line.lstrip())) // 2 for line in err] == [
         n.count(".") for n in names]
-    # each line: its milliseconds, then its counters (h_dispatch,
-    # msm_dispatch, the combine and the assembly carry them) as name=value
+    # each line: its milliseconds, then its counters (h_dispatch and
+    # msm_dispatch carry them) as name=value
     counted = {}
     for line in err:
         ms, sep, counters = line.split(": ")[1].partition(" ms")
@@ -295,15 +290,10 @@ def test_prove_records_the_reference_stages(monkeypatch, capsys):
         assert all(re.fullmatch(r"\w+=\d+", c) for c in counters.split())
         counted[line.split(":")[0].strip()] = counters.split()
     assert [n for n, c in counted.items() if c] == [
-        "prove.h_dispatch", "prove.msm_dispatch", "prove.msm_wait.combine",
-        "prove.assembly"]
+        "prove.h_dispatch", "prove.msm_dispatch"]
 
 
 def test_native_verify_phases_nest_in_order(toy_prove):
-    from infimum_tpu_torch import native
-
-    if not native.available():
-        pytest.skip("the native library does not load")
     t0 = time.perf_counter()
     assert g16.verify(toy_prove["pk"].vk, toy_prove["proof"],
                       toy_prove["w"][1:toy_prove["cs"].num_public + 1])
@@ -318,10 +308,6 @@ def test_native_verify_phases_nest_in_order(toy_prove):
 
 
 def test_malformed_verify_records_only_the_checks(toy_prove):
-    from infimum_tpu_torch import native
-
-    if not native.available():
-        pytest.skip("the native library does not load")
     bad = g16.Proof(a=(1, 3), b=toy_prove["proof"].b, c=toy_prove["proof"].c)
     t0 = time.perf_counter()
     with pytest.raises(ValueError, match="malformed"):
@@ -336,10 +322,6 @@ def test_verify_records_no_phases_of_an_earlier_call(toy_prove,
                                                      monkeypatch):
     """A verify that fails before the native call records no phases: the
     library's last phases are an earlier call's."""
-    from infimum_tpu_torch import native
-
-    if not native.available():
-        pytest.skip("the native library does not load")
     publics = toy_prove["w"][1:toy_prove["cs"].num_public + 1]
     assert g16.verify(toy_prove["pk"].vk, toy_prove["proof"], publics)
 
@@ -418,10 +400,7 @@ def test_prove_in_a_proof_scope_prints_once(toy_prove, monkeypatch, capsys):
     err = capsys.readouterr().err.splitlines()
     assert err[0] == "proof ('process', 0):"
     names = [line.split(":")[0].strip() for line in err[1:]]
-    from infimum_tpu_torch import native
-
-    verify = VERIFY_SPANS if native.available() else ["verify"]
-    assert names == [n for n, _ in PROVE_SPANS] + verify
+    assert names == [n for n, _ in PROVE_SPANS] + VERIFY_SPANS
 
 
 def _setup_circuit(tmp_path):
